@@ -10,4 +10,4 @@ no card is present instead of carrying on on the CPU.  Pass
 ``device="cpu"`` to run the plain PyTorch versions (as the tests do).
 """
 
-__all__ = ["core", "decode", "interop", "models", "ops", "train"]
+__all__ = ["core", "data", "decode", "interop", "models", "ops", "train"]

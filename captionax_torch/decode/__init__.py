@@ -1,1 +1,1 @@
-"""Decoding: the plain beam search oracle and the serving front end."""
+"""Decoding: the plain greedy, sampling and beam oracles and the serving front end."""

@@ -1,8 +1,14 @@
-"""Fixed-shape batched k-beam search in plain PyTorch.
+"""Fixed-shape batched decoding in plain PyTorch: greedy, sampling, k-beam.
 
-Port of ``beam_search`` and ``BeamResult`` from
-``captionax/decode/search.py``, with the reference ``test_step``
-semantics:
+Port of ``greedy``, ``sample``, ``beam_search`` and ``BeamResult`` from
+``captionax/decode/search.py``.  ``greedy`` and ``sample`` start from token
+0 with its embedding (not zeroed), emit ``<pad>`` (0) once a row has
+emitted ``</s>``, and keep a finished row's hidden state and token.
+``sample`` draws ``argmax(logits / temperature + gumbel)``, which is what
+``jax.random.categorical`` computes, with the Gumbel noise from
+:func:`_gumbel` and an explicit ``torch.Generator``.
+
+``beam_search`` keeps the reference ``test_step`` semantics:
 
 - beams start from token 0 with a zeroed embedding at step 1;
 - step 1 expands beam 0 only (the other beams start at -1e9);
@@ -12,12 +18,13 @@ semantics:
   contention; the winner is the completion with the best raw (or
   length-normalised) score, kept by strict improvement.
 
-It is the port's in-package oracle for the fused beam kernel.
+``greedy`` and ``beam_search`` run every step (no early exit): they are
+the port's in-package oracles for the fused greedy and beam kernels.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,6 +57,91 @@ def top_k_first(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.stack(vals, 1), torch.stack(idxs, 1)
 
 
+def _free_running(params: Dict, features: torch.Tensor, gru_params: Optional[Dict],
+                  max_len: int, end_id: int,
+                  pick: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The greedy / sampling loop: ``pick`` maps logits [B, V] to the next
+    tokens [B].  -> int32 token ids [B, max_len]."""
+    B = features.shape[0]
+    dev = features.device
+    h = dec.init_hidden(params, features)
+    tok = torch.zeros((B,), dtype=torch.long, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    out = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
+    for t in range(max_len):
+        h_new, logits, _ = dec.decode_step(params, embedding(params["embed"], tok), h,
+                                           features, gru_params)
+        nxt = pick(logits)
+        out[:, t] = torch.where(done, torch.zeros_like(nxt), nxt).to(torch.int32)
+        h = torch.where(done[:, None], h, h_new)
+        tok = torch.where(done, tok, nxt)
+        done = done | (nxt == end_id)
+    return out
+
+
+def _prepare(params, raw_features, gru_params, device):
+    """Params, theta and raw features on the decode device; the features
+    encoded by the decoder's feature MLP."""
+    dev = resolve_device(device)
+    params = to_device(params, dev)
+    gru_params = None if gru_params is None else to_device(gru_params, dev)
+    features = dec.encode_features(params, torch.as_tensor(raw_features).to(dev))
+    return params, features, gru_params
+
+
+def greedy(
+    params: Dict,
+    raw_features: torch.Tensor,
+    max_len: int = 20,
+    end_id: int = 2,
+    gru_params: Optional[Dict] = None,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Batched greedy decode: the first argmax of ``log_softmax(logits)``
+    at every step.  -> int32 token ids [B, max_len]; positions after
+    ``</s>`` are ``<pad>``.  ``gru_params`` may be shared or carry a
+    leading [B] axis (one theta per image)."""
+    params, features, gru_params = _prepare(params, raw_features, gru_params, device)
+    return _free_running(
+        params, features, gru_params, max_len, end_id,
+        lambda logits: torch.argmax(torch.log_softmax(logits, dim=-1), dim=-1))
+
+
+def _gumbel(generator: Optional[torch.Generator], shape, device) -> torch.Tensor:
+    """Standard Gumbel noise, -log(-log(u)) with u uniform in [tiny, 1)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def sample(
+    params: Dict,
+    raw_features: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    max_len: int = 20,
+    end_id: int = 2,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    gru_params: Optional[Dict] = None,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Batched multinomial sampling from ``softmax(logits / temperature)``,
+    restricted to the ``top_k`` largest logits when ``top_k > 0``.  The
+    noise comes from ``generator`` (on the decode device).  -> int32 token
+    ids [B, max_len]."""
+    params, features, gru_params = _prepare(params, raw_features, gru_params, device)
+    dev = features.device
+
+    def pick(logits):
+        logits = logits / temperature
+        if top_k > 0:
+            vals, idx = top_k_first(logits, top_k)
+            choice = torch.argmax(_gumbel(generator, vals.shape, dev) + vals, dim=-1)
+            return torch.gather(idx, 1, choice[:, None])[:, 0]
+        return torch.argmax(_gumbel(generator, logits.shape, dev) + logits, dim=-1)
+
+    return _free_running(params, features, gru_params, max_len, end_id, pick)
+
+
 def beam_search(
     params: Dict,
     raw_features: torch.Tensor,
@@ -62,10 +154,8 @@ def beam_search(
 ) -> BeamResult:
     """raw_features [B, R, NF] -> BeamResult.  ``gru_params`` may be shared
     or carry a leading [B] axis (one theta per image)."""
-    dev = resolve_device(device)
-    params = to_device(params, dev)
-    gru_params = None if gru_params is None else to_device(gru_params, dev)
-    features = dec.encode_features(params, torch.as_tensor(raw_features).to(dev))
+    params, features, gru_params = _prepare(params, raw_features, gru_params, device)
+    dev = features.device
     B, R, F = features.shape
     V = params["fc"]["b"].shape[0]
     T = max_steps + 1

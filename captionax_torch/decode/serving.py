@@ -1,7 +1,7 @@
-"""Batch serving for the fused beam decode.
+"""Batch serving for the fused beam and greedy decodes.
 
-Port of ``captionax/decode/serving.py`` (the beam server; the greedy server
-comes with the greedy kernel).  :class:`PipelinedDecoder` keeps batches in
+Port of ``captionax/decode/serving.py``: the beam server (K1) and the greedy
+server (K2).  :class:`PipelinedDecoder` keeps batches in
 flight: each batch's kernels are queued on the current CUDA stream, its
 result is copied without blocking into pinned host memory, and a CUDA
 event per batch marks when that copy is done, so the host only waits on
@@ -22,7 +22,7 @@ import torch
 
 from captionax_torch.core.runtime import DeviceLike, resolve_device
 from captionax_torch.decode.search import BeamResult
-from captionax_torch.ops.decode_kernel import K, BeamDecoder
+from captionax_torch.ops.decode_kernel import K, BeamDecoder, GreedyDecoder
 
 
 def _map_result(fn, res):
@@ -214,4 +214,24 @@ def make_beam_server(
 
     if packed:
         return PipelinedDecoder(lambda *a: pack_beam_result(decode(*a)))
+    return PipelinedDecoder(decode)
+
+
+def make_greedy_server(
+    decoder_params,
+    gru_params=None,
+    max_len: int = 20,
+    f32: bool = False,
+    device: DeviceLike = None,
+) -> PipelinedDecoder:
+    """A styled-caption greedy server on the K2 kernels (weights packed
+    once, at build); the stream yields int32 token arrays [B, max_len].  A
+    theta-bank ``gru_params`` makes the stream take ``(features,
+    style_rows)`` tuples, as the beam server does."""
+    decoder = GreedyDecoder(decoder_params, gru_params, max_len=max_len, f32=f32,
+                            device=resolve_device(device))
+
+    def decode(f, rows=None):
+        return decoder(f, rows)
+
     return PipelinedDecoder(decode)

@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``ops/csrc``.
 
-The kernels have a plain C interface: ``nvcc`` compiles
-``csrc/beam_decode.cu`` for ``sm_90a`` into a shared library under
-``captionax_torch/_build/`` at first use, and ``ctypes`` loads it.  The
-library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  Nothing here
-runs when the module is imported.
+The kernels have a plain C interface: one ``nvcc`` call compiles every
+``csrc/*.cu`` (``beam_decode.cu``: the cell step and K1; ``greedy_decode.cu``:
+K2; both include ``decode_common.cuh``) for ``sm_90a`` into one shared
+library under ``captionax_torch/_build/`` at first use, and ``ctypes`` loads
+it.  The library's file name carries a hash of every source and header and
+of the flags, so an edited source is rebuilt and a stale library is never
+loaded.  Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "beam_decode.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -31,11 +32,14 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entries and their argument types: every pointer and the stream is a
 # c_void_p (a bare Python int would be cut to 32 bits), every size a c_int.
 SIGNATURES = {
-    "beam_cell_step_f32": [_P] * 5 + [_I] + [_P] * 9 + [_I] * 7 + [_P],
-    "beam_cell_step_bf16": [_P] * 5 + [_I] + [_P] * 9 + [_I] * 7 + [_P],
-    "logits_top3_partial_f32": [_P] * 7 + [_I] * 3 + [_P],
-    "logits_top3_partial_bf16": [_P] * 7 + [_I] * 3 + [_P],
-    "beam_select": [_P] * 14 + [_I] * 6 + [_P],
+    "cell_step_f32": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 9 + [_P],
+    "cell_step_bf16": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 9 + [_P],
+    "logits_top3_partial_f32": [_P] * 8 + [_I] * 3 + [_P],
+    "logits_top3_partial_bf16": [_P] * 8 + [_I] * 3 + [_P],
+    "beam_select": [_P] * 15 + [_I] * 6 + [_P],
+    "logits_top1_partial_f32": [_P] * 6 + [_I] * 3 + [_P],
+    "logits_top1_partial_bf16": [_P] * 6 + [_I] * 3 + [_P],
+    "greedy_select": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 
@@ -56,10 +60,17 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def sources() -> List[Path]:
+    """The files the library is built from: every .cu and .cuh of csrc."""
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
 def build() -> BuildInfo:
-    """Compile the library unless this source and these flags are built."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libbeam_decode_{digest.hexdigest()[:16]}.so"
+    """Compile the library unless these sources and flags are built."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    out = BUILD_DIR / f"libdecode_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -68,7 +79,8 @@ def build() -> BuildInfo:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+             *(str(p) for p in sources() if p.suffix == ".cu")],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
@@ -93,8 +105,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.beam_decode_error_string.argtypes = [ctypes.c_int]
-        lib.beam_decode_error_string.restype = ctypes.c_char_p
+        lib.decode_error_string.argtypes = [ctypes.c_int]
+        lib.decode_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
@@ -112,6 +124,6 @@ class KernelOp:
         lib = library()
         rc = getattr(lib, symbol)(*args)
         if rc != 0:
-            msg = lib.beam_decode_error_string(rc).decode()
+            msg = lib.decode_error_string(rc).decode()
             raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
         self.launches += 1

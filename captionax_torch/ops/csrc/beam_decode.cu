@@ -1,4 +1,5 @@
-// K1 for Hopper: one step of the styled k=3 beam decode, as three kernels.
+// K1 for Hopper: one step of the styled k=3 beam decode, as three kernels,
+// and the cell kernel (a) that K1 and K2 (greedy_decode.cu) share.
 //
 // Replaces the TPU kernel `_beam_kernel` (captionax/ops/decode_kernel.py,
 // launched by `fused_beam_search`), which runs a whole 50-step beam decode
@@ -7,10 +8,14 @@
 // keeps the weights in device memory / L2 (50 MB) and splits a beam step in
 // three launches that a host loop issues on the current stream:
 //
-//   (a) beam_cell_step       one block per tile of 3*block_images beam rows:
-//                            embedding gather (zero at t=0), Bahdanau
-//                            attention with att1 precomputed, GRU on the
-//                            theta bank row picked by the clamped style.
+//   (a) cell_step            one block per tile of `block_rows` rows:
+//                            embedding gather, Bahdanau attention with att1
+//                            precomputed, GRU on the theta bank row picked
+//                            by the clamped style.  Row r belongs to image
+//                            r / rows_per_image (3 for beam rows, 1 for
+//                            greedy rows); the word is zero at t=0 when
+//                            zero_word_t0 is set (beam), the embedding of
+//                            token 0 otherwise (greedy).
 //   (b) logits_top3_partial  grid (vocab chunk of 128, row tile of 64): the
 //                            product h_new . fc_w[:, chunk] + fc_b in a
 //                            shared-memory tiled loop, then each row's top-3
@@ -37,6 +42,14 @@
 // lax.top_k: (value desc, vocab index asc) within a row, and beam-major
 // order across an image's 9 candidates.
 //
+// Early exit (the reference's `improvable`, decode_kernel.py:750-759): (c)
+// of step t sets run[t + 1] when some row's score exceeds its image's best
+// completion (score - best > 0; NEG_INF - NEG_INF = 0 is not improvable),
+// and every kernel of step t + 1 returns at entry when it is 0 (see
+// decode_common.cuh).  The reference tests this per tile of images, the
+// port once per batch: a finished image cannot change its outputs in
+// later steps, so both give the outputs of a decode that runs every step.
+//
 // Plain C interface, loaded with ctypes; every entry returns
 // cudaGetLastError() after its launch.
 
@@ -46,27 +59,11 @@
 #include <climits>
 #include <cmath>
 
+#include "decode_common.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e9f;  // the JAX package's NEG_INF
-constexpr int kChunk = 128;       // vocab columns per partial (block width of (b))
-constexpr int kRowTile = 64;      // rows per block of (b)
-constexpr int kBK = 8;            // depth step of (b)'s shared-memory tiles
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+using namespace decode;
 
 // A descending top-3 list under the total order (value desc, index asc).
 struct Top3 {
@@ -80,10 +77,6 @@ __device__ __forceinline__ void top3_init(Top3& t) {
     t.v[q] = -INFINITY;
     t.i[q] = INT_MAX;
   }
-}
-
-__device__ __forceinline__ bool ahead(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
 }
 
 __device__ __forceinline__ void top3_insert(Top3& t, float v, int i) {
@@ -144,19 +137,21 @@ __device__ __forceinline__ void lse_butterfly(float& m, float& s, int width) {
 }
 
 // ---------------------------------------------------------------- (a)
-// Rows r0 .. r0+RT-1 of the beam batch (row = image*3 + beam).  feats/att1
-// are per image ([B, R, F], [B, R, H]); the theta bank is [S, In, 3H] /
-// [S, H, 3H] (S = 1 for a single theta), biases [S, 3H] in f32.
+// Rows r0 .. r0+RT-1 of the batch (row = image*rows_per_image + slot).
+// feats/att1 are per image ([B, R, F], [B, R, H]); the theta bank is
+// [S, In, 3H] / [S, H, 3H] (S = 1 for a single theta), biases [S, 3H] in f32.
 template <typename W, int RT, bool MULTI>
-__global__ void __launch_bounds__(256) beam_cell_step_kernel(
+__global__ void __launch_bounds__(256) cell_step_kernel(
     const W* __restrict__ feats, const W* __restrict__ att1,
     const float* __restrict__ h, const int* __restrict__ tok,
     const int* __restrict__ styles, int t, const W* __restrict__ emb,
     const W* __restrict__ ua_w, const float* __restrict__ ua_b,
     const float* __restrict__ va, const W* __restrict__ wih,
     const W* __restrict__ whh, const float* __restrict__ bih,
-    const float* __restrict__ bhh, float* __restrict__ h_new, int rows, int R,
-    int F, int E, int H, int S) {
+    const float* __restrict__ bhh, float* __restrict__ h_new,
+    const int* __restrict__ live, int rows, int rows_per_image, int zero_word_t0,
+    int R, int F, int E, int H, int S) {
+  if (!step_runs(live)) return;
   extern __shared__ float smem[];
   const int In = E + F, G = 3 * H;
   float* sh = smem;            // [RT, H]   h
@@ -175,7 +170,7 @@ __global__ void __launch_bounds__(256) beam_cell_step_kernel(
   for (int e = tid; e < RT * E; e += nt) {
     const int r = e / E, j = e % E;
     float v = 0.f;
-    if (r < nr && t > 0) v = to_f(emb[(size_t)tok[r0 + r] * E + j]);
+    if (r < nr && (t > 0 || !zero_word_t0)) v = to_f(emb[(size_t)tok[r0 + r] * E + j]);
     sx[r * In + j] = v;
   }
   __syncthreads();
@@ -196,7 +191,7 @@ __global__ void __launch_bounds__(256) beam_cell_step_kernel(
 
   for (int p = warp; p < nr * R; p += nw) {
     const int r = p / R, rho = p % R;
-    const W* a1 = att1 + ((size_t)((r0 + r) / 3) * R + rho) * H;
+    const W* a1 = att1 + ((size_t)((r0 + r) / rows_per_image) * R + rho) * H;
     float s = 0.f;
     for (int j = lane; j < H; j += 32) s += tanhf(to_f(a1[j]) + sa2[r * H + j]) * va[j];
     s = warp_sum(s);
@@ -223,7 +218,7 @@ __global__ void __launch_bounds__(256) beam_cell_step_kernel(
     const int r = e / F, f = e % F;
     float c = 0.f;
     if (r < nr) {
-      const W* fp = feats + (size_t)((r0 + r) / 3) * R * F + f;
+      const W* fp = feats + (size_t)((r0 + r) / rows_per_image) * R * F + f;
       for (int rho = 0; rho < R; ++rho) c += sw[r * R + rho] * to_f(fp[(size_t)rho * F]);
     }
     sx[r * In + E + f] = c;
@@ -269,7 +264,7 @@ __global__ void __launch_bounds__(256) beam_cell_step_kernel(
       }
     } else {
       for (int r = 0; r < nr; ++r) {
-        const int s = min(max(styles[(r0 + r) / 3], 0), S - 1);
+        const int s = min(max(styles[(r0 + r) / rows_per_image], 0), S - 1);
         const W* wi = wih + (size_t)s * In * G + j;
         const W* wh = whh + (size_t)s * H * G + j;
         const float* bi = bih + (size_t)s * G;
@@ -302,47 +297,21 @@ __global__ void __launch_bounds__(256) beam_cell_step_kernel(
 // Block (chunk c, row tile y), 256 threads as 16 x 16: thread (ty, tx) owns
 // rows ty + 16m (m < 4) and columns tx + 16n (n < 8) of the 64 x 128 tile.
 // The 16 threads of one row are one half-warp, which merges their top-3 and
-// logsumexp pairs with shuffles.
+// logsumexp pairs with shuffles.  At most 64 registers, so that 4 blocks
+// fit on an SM: left to itself ptxas takes 78, only 3 fit, and the kernel
+// ran 3-5% slower on the H100 (PERF.md).
 template <typename W>
-__global__ void __launch_bounds__(256) logits_top3_partial_kernel(
+__global__ void __launch_bounds__(256, 4) logits_top3_partial_kernel(
     const float* __restrict__ h, const W* __restrict__ fc_w,
     const float* __restrict__ fc_b, float* __restrict__ pv, int* __restrict__ pi,
-    float* __restrict__ pm, float* __restrict__ ps, int rows, int H, int Vp) {
-  __shared__ float As[kBK][kRowTile];
-  __shared__ float Bs[kBK][kChunk];
+    float* __restrict__ pm, float* __restrict__ ps, const int* __restrict__ live,
+    int rows, int H, int Vp) {
+  if (!step_runs(live)) return;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int chunk = blockIdx.x, n_chunks = gridDim.x;
   const int col0 = chunk * kChunk, row0 = blockIdx.y * kRowTile;
   float acc[4][8];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = 0.f;
-
-  for (int k0 = 0; k0 < H; k0 += kBK) {
-    for (int e = tid; e < kRowTile * kBK; e += 256) {
-      const int r = e / kBK, kk = e % kBK, gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < rows && gk < H) ? h[(size_t)gr * H + gk] : 0.f;
-    }
-    for (int e = tid; e < kBK * kChunk; e += 256) {
-      const int kk = e / kChunk, c = e % kChunk, gk = k0 + kk;
-      Bs[kk][c] = gk < H ? to_f(fc_w[(size_t)gk * Vp + col0 + c]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[4], b[8];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) a[m] = As[kk][ty + 16 * m];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) b[n] = Bs[kk][tx + 16 * n];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] += a[m] * b[n];
-    }
-    __syncthreads();
-  }
+  vocab_tile_product<W>(h, fc_w, rows, H, Vp, row0, col0, acc);
 
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
@@ -379,6 +348,7 @@ __global__ void __launch_bounds__(256) logits_top3_partial_kernel(
 // ---------------------------------------------------------------- (c)
 // One warp per image, 4 images per block.  hist_in/hist_out are the token
 // histories [rows, T] before and after this step (the host swaps them).
+// live[0] gates this step; live[1] is set when some row stays improvable.
 __global__ void __launch_bounds__(128) beam_select_kernel(
     const float* __restrict__ pv, const int* __restrict__ pi,
     const float* __restrict__ pm, const float* __restrict__ ps,
@@ -386,8 +356,9 @@ __global__ void __launch_bounds__(128) beam_select_kernel(
     float* __restrict__ score, const int* __restrict__ hist_in,
     int* __restrict__ hist_out, int* __restrict__ best_seq,
     float* __restrict__ best_val, int* __restrict__ best_len,
-    int* __restrict__ found, int n_img, int n_chunks, int H, int T, int t,
-    int end_id) {
+    int* __restrict__ found, int* __restrict__ live, int n_img, int n_chunks, int H,
+    int T, int t, int end_id) {
+  if (!step_runs(live)) return;
   const int lane = threadIdx.x & 31;
   const int img = blockIdx.x * 4 + (threadIdx.x >> 5);
   if (img >= n_img) return;  // uniform across the warp
@@ -440,7 +411,8 @@ __global__ void __launch_bounds__(128) beam_select_kernel(
       win = j;
     }
   }
-  const bool improve = cbest > best_val[img] && cbest > kNegInf / 2;
+  const float best_old = best_val[img];
+  const bool improve = cbest > best_old && cbest > kNegInf / 2;
 
   for (int j = 0; j < 3; ++j) {
     const float* src = h_new + (size_t)(img * 3 + par[j]) * H;
@@ -462,73 +434,74 @@ __global__ void __launch_bounds__(128) beam_select_kernel(
       best_val[img] = cbest;
       best_len[img] = t + 2;
     }
+    const float best_new = improve ? cbest : best_old;
     if (done[0] || done[1] || done[2]) found[img] = 1;
+    bool improvable = false;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      score[img * 3 + j] = done[j] ? kNegInf : g.v[j];
+      const float sc = done[j] ? kNegInf : g.v[j];
+      score[img * 3 + j] = sc;
       tok[img * 3 + j] = ntok[j];
+      improvable = improvable || sc - best_new > 0.f;
     }
+    if (improvable && live != nullptr) live[1] = 1;
   }
 }
 
+// The arguments of every cell entry, in the order of the C interface.
+struct CellArgs {
+  const void *feats, *att1, *h, *tok, *styles;
+  int t;
+  const void *emb, *ua_w, *ua_b, *va, *wih, *whh, *bih, *bhh;
+  void* h_new;
+  const void* live;
+  int rows, rows_per_image, zero_word_t0, R, F, E, H, S;
+  cudaStream_t stream;
+};
+
 template <typename W, int RT, bool MULTI>
-void launch_cell_kernel(const void* feats, const void* att1, const void* h, const void* tok,
-                        const void* styles, int t, const void* emb, const void* ua_w,
-                        const void* ua_b, const void* va, const void* wih, const void* whh,
-                        const void* bih, const void* bhh, void* h_new, int rows, int R,
-                        int F, int E, int H, int S, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)RT * (2 * H + E + F + R);
+void launch_cell_kernel(const CellArgs& a) {
+  const size_t smem = sizeof(float) * (size_t)RT * (2 * a.H + a.E + a.F + a.R);
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(beam_cell_step_kernel<W, RT, MULTI>,
+    cudaFuncSetAttribute(cell_step_kernel<W, RT, MULTI>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  beam_cell_step_kernel<W, RT, MULTI><<<(rows + RT - 1) / RT, 256, smem, stream>>>(
-      (const W*)feats, (const W*)att1, (const float*)h, (const int*)tok,
-      (const int*)styles, t, (const W*)emb, (const W*)ua_w, (const float*)ua_b,
-      (const float*)va, (const W*)wih, (const W*)whh, (const float*)bih,
-      (const float*)bhh, (float*)h_new, rows, R, F, E, H, S);
+  cell_step_kernel<W, RT, MULTI><<<(a.rows + RT - 1) / RT, 256, smem, a.stream>>>(
+      (const W*)a.feats, (const W*)a.att1, (const float*)a.h, (const int*)a.tok,
+      (const int*)a.styles, a.t, (const W*)a.emb, (const W*)a.ua_w, (const float*)a.ua_b,
+      (const float*)a.va, (const W*)a.wih, (const W*)a.whh, (const float*)a.bih,
+      (const float*)a.bhh, (float*)a.h_new, (const int*)a.live, a.rows, a.rows_per_image,
+      a.zero_word_t0, a.R, a.F, a.E, a.H, a.S);
 }
 
 template <typename W, int RT>
-void launch_cell(const void* feats, const void* att1, const void* h, const void* tok,
-                 const void* styles, int t, const void* emb, const void* ua_w,
-                 const void* ua_b, const void* va, const void* wih, const void* whh,
-                 const void* bih, const void* bhh, void* h_new, int rows, int R, int F,
-                 int E, int H, int S, cudaStream_t stream) {
-  if (S > 1)
-    launch_cell_kernel<W, RT, true>(feats, att1, h, tok, styles, t, emb, ua_w, ua_b, va,
-                                    wih, whh, bih, bhh, h_new, rows, R, F, E, H, S, stream);
+void launch_cell(const CellArgs& a) {
+  if (a.S > 1)
+    launch_cell_kernel<W, RT, true>(a);
   else
-    launch_cell_kernel<W, RT, false>(feats, att1, h, tok, styles, t, emb, ua_w, ua_b, va,
-                                     wih, whh, bih, bhh, h_new, rows, R, F, E, H, S, stream);
+    launch_cell_kernel<W, RT, false>(a);
 }
 
 template <typename W>
-int cell_entry(const void* feats, const void* att1, const void* h, const void* tok,
-               const void* styles, int t, const void* emb, const void* ua_w,
-               const void* ua_b, const void* va, const void* wih, const void* whh,
-               const void* bih, const void* bhh, void* h_new, int rows, int R, int F,
-               int E, int H, int S, int block_images, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define CELL_ARGS feats, att1, h, tok, styles, t, emb, ua_w, ua_b, va, wih, whh, bih, bhh, \
-                  h_new, rows, R, F, E, H, S, st
-  switch (block_images) {
-    case 1: launch_cell<W, 3>(CELL_ARGS); break;
-    case 2: launch_cell<W, 6>(CELL_ARGS); break;
-    case 4: launch_cell<W, 12>(CELL_ARGS); break;
+int cell_entry(const CellArgs& a, int block_rows) {
+  if (a.rows_per_image < 1) return (int)cudaErrorInvalidValue;
+  switch (block_rows) {
+    case 3: launch_cell<W, 3>(a); break;
+    case 6: launch_cell<W, 6>(a); break;
+    case 12: launch_cell<W, 12>(a); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef CELL_ARGS
   return (int)cudaGetLastError();
 }
 
 template <typename W>
 int logits_entry(const void* h, const void* fc_w, const void* fc_b, void* pv, void* pi,
-                 void* pm, void* ps, int rows, int H, int Vp, void* stream) {
+                 void* pm, void* ps, const void* live, int rows, int H, int Vp,
+                 void* stream) {
   if (Vp % kChunk) return (int)cudaErrorInvalidValue;
   const dim3 grid(Vp / kChunk, (rows + kRowTile - 1) / kRowTile);
   logits_top3_partial_kernel<W><<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const float*)h, (const W*)fc_w, (const float*)fc_b, (float*)pv, (int*)pi,
-      (float*)pm, (float*)ps, rows, H, Vp);
+      (float*)pm, (float*)ps, (const int*)live, rows, H, Vp);
   return (int)cudaGetLastError();
 }
 
@@ -536,51 +509,54 @@ int logits_entry(const void* h, const void* fc_w, const void* fc_b, void* pv, vo
 
 extern "C" {
 
-const char* beam_decode_error_string(int code) {
+const char* decode_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-int beam_cell_step_f32(const void* feats, const void* att1, const void* h, const void* tok,
-                       const void* styles, int t, const void* emb, const void* ua_w,
-                       const void* ua_b, const void* va, const void* wih, const void* whh,
-                       const void* bih, const void* bhh, void* h_new, int rows, int R,
-                       int F, int E, int H, int S, int block_images, void* stream) {
-  return cell_entry<float>(feats, att1, h, tok, styles, t, emb, ua_w, ua_b, va, wih, whh,
-                           bih, bhh, h_new, rows, R, F, E, H, S, block_images, stream);
-}
+// Cell step for rows of `rows_per_image` rows per image (3: beam, 1: greedy).
+#define CELL_PARAMS                                                                     \
+  const void *feats, const void *att1, const void *h, const void *tok,                 \
+      const void *styles, int t, const void *emb, const void *ua_w, const void *ua_b,  \
+      const void *va, const void *wih, const void *whh, const void *bih,               \
+      const void *bhh, void *h_new, const void *live, int rows, int rows_per_image,    \
+      int zero_word_t0, int R, int F, int E, int H, int S, int block_rows, void *stream
+#define CELL_ARGS                                                                      \
+  CellArgs{feats, att1, h, tok, styles, t, emb, ua_w, ua_b, va, wih, whh, bih, bhh,    \
+           h_new, live, rows, rows_per_image, zero_word_t0, R, F, E, H, S,              \
+           (cudaStream_t)stream},                                                      \
+      block_rows
 
-int beam_cell_step_bf16(const void* feats, const void* att1, const void* h, const void* tok,
-                        const void* styles, int t, const void* emb, const void* ua_w,
-                        const void* ua_b, const void* va, const void* wih, const void* whh,
-                        const void* bih, const void* bhh, void* h_new, int rows, int R,
-                        int F, int E, int H, int S, int block_images, void* stream) {
-  return cell_entry<__nv_bfloat16>(feats, att1, h, tok, styles, t, emb, ua_w, ua_b, va,
-                                   wih, whh, bih, bhh, h_new, rows, R, F, E, H, S,
-                                   block_images, stream);
-}
+int cell_step_f32(CELL_PARAMS) { return cell_entry<float>(CELL_ARGS); }
+
+int cell_step_bf16(CELL_PARAMS) { return cell_entry<__nv_bfloat16>(CELL_ARGS); }
+
+#undef CELL_PARAMS
+#undef CELL_ARGS
 
 int logits_top3_partial_f32(const void* h, const void* fc_w, const void* fc_b, void* pv,
-                            void* pi, void* pm, void* ps, int rows, int H, int Vp,
-                            void* stream) {
-  return logits_entry<float>(h, fc_w, fc_b, pv, pi, pm, ps, rows, H, Vp, stream);
+                            void* pi, void* pm, void* ps, const void* live, int rows,
+                            int H, int Vp, void* stream) {
+  return logits_entry<float>(h, fc_w, fc_b, pv, pi, pm, ps, live, rows, H, Vp, stream);
 }
 
 int logits_top3_partial_bf16(const void* h, const void* fc_w, const void* fc_b, void* pv,
-                             void* pi, void* pm, void* ps, int rows, int H, int Vp,
-                             void* stream) {
-  return logits_entry<__nv_bfloat16>(h, fc_w, fc_b, pv, pi, pm, ps, rows, H, Vp, stream);
+                             void* pi, void* pm, void* ps, const void* live, int rows,
+                             int H, int Vp, void* stream) {
+  return logits_entry<__nv_bfloat16>(h, fc_w, fc_b, pv, pi, pm, ps, live, rows, H, Vp,
+                                     stream);
 }
 
 int beam_select(const void* pv, const void* pi, const void* pm, const void* ps,
                 const void* h_new, void* h, void* tok, void* score, const void* hist_in,
                 void* hist_out, void* best_seq, void* best_val, void* best_len, void* found,
-                int n_img, int n_chunks, int H, int T, int t, int end_id, void* stream) {
+                void* live, int n_img, int n_chunks, int H, int T, int t, int end_id,
+                void* stream) {
   const dim3 grid((n_img + 3) / 4);
   beam_select_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
       (const float*)pv, (const int*)pi, (const float*)pm, (const float*)ps,
       (const float*)h_new, (float*)h, (int*)tok, (float*)score, (const int*)hist_in,
-      (int*)hist_out, (int*)best_seq, (float*)best_val, (int*)best_len, (int*)found, n_img,
-      n_chunks, H, T, t, end_id);
+      (int*)hist_out, (int*)best_seq, (float*)best_val, (int*)best_len, (int*)found,
+      (int*)live, n_img, n_chunks, H, T, t, end_id);
   return (int)cudaGetLastError();
 }
 

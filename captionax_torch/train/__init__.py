@@ -1,1 +1,1 @@
-"""Training-side helpers of the port (slice 1: theta synthesis only)."""
+"""Training-side helpers of the port (slice 1: theta synthesis and style ids)."""

@@ -5,18 +5,21 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the K1 beam kernels with nvcc, holds each kernel and the whole
-decode against their plain PyTorch versions (small shapes, then the full
-width of the hypernet attention-GRU model), serves batches through the
-port's beam server, and times each kernel.  One line per phase gives the
-phase's seconds.  The line before the last is a JSON ``kernels`` record;
-the last line is ``{"ok": true, "device": {...}}``.  Any mismatch, a
-missing card or a failed build raises, and the script exits non-zero
-without that last line.
+It builds the decode kernels (K1 beam, K2 greedy) with one nvcc call,
+holds each kernel and each whole decode against their plain PyTorch
+versions and against the plain oracles that run every step (small shapes,
+then the full width of the hypernet attention-GRU model), serves batches
+through the port's beam and greedy servers, shows that the early exit
+fires, and times each kernel.  One line per phase gives the phase's
+seconds.  The line before the last is a JSON ``kernels`` record; the last
+line is ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or
+a failed build raises, and the script exits non-zero without that last
+line.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import signal
 import subprocess
@@ -27,10 +30,12 @@ import time
 import numpy as np
 import torch
 
+from captionax_torch.decode.search import beam_search, greedy
 from captionax_torch.decode.serving import (
     MicroBatcher,
     fetch,
     make_beam_server,
+    make_greedy_server,
     pack_beam_result,
     unpack_beam_result,
 )
@@ -47,6 +52,8 @@ from captionax_torch.train.steps import (
 TIME_LIMIT_S = 1100
 # full width of the hypernet attention-GRU model (bench.py's configuration)
 NF, FO, E, H, V, R, MAX_STEPS = 2048, 200, 200, 200, 9684, 49, 50
+MAX_LEN = 20          # greedy captions (fused_greedy's default)
+END = 2               # </s>
 B = 1024
 N_BATCHES = 3
 EOS_BIAS = 1.2        # bench.py's EOS-terminating variant: fc bias +1.2 on </s> (id 2)
@@ -57,11 +64,19 @@ EOS_BIAS = 1.2        # bench.py's EOS-terminating variant: fc bias +1.2 on </s>
 # version too, single style and mixed.
 MID_BIAS = 0.26
 MIN_LONG = 0.01       # share of images that must complete past step 1 at +0.26
+SWEEP_BIASES = (0.3, 0.35, 0.4, 0.5, 0.6, 0.8)  # steps and lengths are printed for each
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SMALL = dict(NF=64, F=24, E=24, H=24, V=301, B=6, R=9, steps=25)
 SMALL_SEEDS = ((5, 0.35), (7, 0.45), (11, 0.3))
+# small cases where the early exit fires before the last step, for the beam
+# and for greedy (at 13 and 39 after several steps); S=3 bank cases: one
+# that ends at step 1, and one where the beam runs 10 steps and greedy 19
+# (lengths up to 11)
+SMALL_EXIT_SEEDS = ((5, EOS_BIAS), (13, 0.4), (39, 0.4))
+SMALL_BANKS = ((31, 0.6), (39, 0.2))
 SMALL_SCORE_TOL = 1e-4
+ORACLE_SCORE_TOL = 3e-3  # kernel vs the plain beam_search, as tests/test_decode_kernel.py
 FULL_SCORE_TOL = 1e-3
 FULL_AGREEMENT = 0.99
 
@@ -116,7 +131,7 @@ def card_and_build():
     _cuda.library()
 
 
-# ------------------------------------------------------------------ 2
+# ------------------------------------------------------------------ 2, 3
 def small_params(seed: int, bias: float):
     s = SMALL
     p = attention_gru_init(gen(seed), s["NF"], s["F"], s["E"], s["H"], s["V"],
@@ -140,19 +155,25 @@ def compare_states(a, b, what: str) -> None:
 
 
 def check_pieces(decoder, raw, style_rows=None) -> dict:
-    """Run the plain loop, and at every step hold each kernel against its
-    plain version on the same inputs."""
+    """Run the plain beam loop, and at every step hold each K1 kernel against
+    its plain version on the same inputs, gated by the same exit flags; stop
+    where the flag says the decode stopped."""
     feats, att1, h0, styles = decoder.prepare(raw, style_rows)
     w = decoder.weights()
     state = dk._init_state(h0, decoder.max_steps)
-    errs = {"cell": 0.0, "logits": 0.0, "select": 0.0}
+    cell = functools.partial(dk.cell_step, block_rows=dk.K * decoder.block_images)
+    errs = {"cell": 0.0, "logits": 0.0, "select": 0.0, "steps": decoder.max_steps}
     for t in range(decoder.max_steps):
-        hp = dk.beam_cell_step_plain(feats, att1, state["h"], state["tok"], styles, t, w)
-        hk = dk.beam_cell_step(feats, att1, state["h"], state["tok"], styles, t, w)
+        live = state["run"][t:]
+        if not bool(live[0]):
+            errs["steps"] = t
+            break
+        hp = dk.cell_step_plain(feats, att1, state["h"], state["tok"], styles, t, w, live=live)
+        hk = cell(feats, att1, state["h"], state["tok"], styles, t, w, live=live)
         errs["cell"] = max(errs["cell"], (hp - hk).abs().max().item())
         require(errs["cell"] <= SMALL_SCORE_TOL, f"(a) step {t}: {errs['cell']}")
-        pp = dk.logits_top3_partial_plain(hp, w["fc_w"], w["fc_b"])
-        pk = dk.logits_top3_partial(hp, w["fc_w"], w["fc_b"])
+        pp = dk.logits_top3_partial_plain(hp, w["fc_w"], w["fc_b"], live)
+        pk = dk.logits_top3_partial(hp, w["fc_w"], w["fc_b"], live)
         require(torch.equal(pp[1], pk[1]), f"(b) step {t}: top-3 indices differ")
         e = max((pp[0] - pk[0]).abs().max().item(), (pp[2] - pk[2]).abs().max().item(),
                 ((pp[3] - pk[3]).abs() / pp[3]).max().item())
@@ -161,10 +182,47 @@ def check_pieces(decoder, raw, style_rows=None) -> dict:
         sk = clone_state(state)
         dk.beam_select_plain(*pp, hp, state, t, decoder.end_id)
         dk.beam_select(*pp, hp, sk, t, decoder.end_id)
-        compare_states(state, sk, f"(c) step {t}")
+        compare_states(state, sk, f"(c) step {t}")  # the exit flags included
         errs["select"] = max(errs["select"], (state["score"] - sk["score"]).abs().max().item())
         for st in (state, sk):
             st["hist_in"], st["hist_out"] = st["hist_out"], st["hist_in"]
+    if errs["steps"] < decoder.max_steps:  # a closed gate leaves the state as it is
+        sk = clone_state(state)
+        t = errs["steps"]
+        dk.beam_select(*pk, hk, sk, t, decoder.end_id)
+        compare_states(state, sk, f"(c) gated at step {t}")
+    return errs
+
+
+def check_greedy_pieces(decoder, raw, style_rows=None) -> dict:
+    """The same for the K2 kernels: (a) with one row per image, (b1)'s
+    indices equal and values within SMALL_SCORE_TOL, (c1)'s state exact."""
+    feats, att1, h0, styles = decoder.prepare(raw, style_rows)
+    w = decoder.weights()
+    state = dk._init_greedy_state(h0, decoder.max_len)
+    cell = functools.partial(dk.cell_step, zero_word_t0=False, block_rows=dk.GREEDY_BLOCK_ROWS)
+    errs = {"cell": 0.0, "logits": 0.0, "steps": decoder.max_len}
+    for t in range(decoder.max_len):
+        live = state["run"][t:]
+        if not bool(live[0]):
+            errs["steps"] = t
+            break
+        hp = dk.cell_step_plain(feats, att1, state["h"], state["tok"], styles, t, w,
+                                zero_word_t0=False, live=live)
+        hk = cell(feats, att1, state["h"], state["tok"], styles, t, w, live=live)
+        errs["cell"] = max(errs["cell"], (hp - hk).abs().max().item())
+        require(errs["cell"] <= SMALL_SCORE_TOL, f"(a) greedy step {t}: {errs['cell']}")
+        pp = dk.logits_top1_partial_plain(hp, w["fc_w"], w["fc_b"], live)
+        pk = dk.logits_top1_partial(hp, w["fc_w"], w["fc_b"], live)
+        require(torch.equal(pp[1], pk[1]), f"(b1) step {t}: argmax indices differ")
+        e = (pp[0] - pk[0]).abs().max().item()
+        errs["logits"] = max(errs["logits"], e)
+        require(e <= SMALL_SCORE_TOL, f"(b1) step {t}: {e}")
+        sk = clone_state(state)
+        dk.greedy_select_plain(*pp, hp, state, t, decoder.end_id)
+        dk.greedy_select(*pp, hp, sk, t, decoder.end_id)
+        for k in state:
+            require(torch.equal(state[k], sk[k]), f"(c1) step {t}: {k} differs")
     return errs
 
 
@@ -178,33 +236,86 @@ def compare_results(got, ref, score_tol: float, what: str) -> None:
     require(err <= score_tol, f"{what}: scores differ by {err}")
 
 
-def small_exactness():
+def small_bank(seed: int, bias: float):
     s = SMALL
-    for seed, bias in SMALL_SEEDS:
+    p, raw = small_params(seed, bias)
+    hn = hypernet_init(gen(seed + 1), s["E"], s["E"] + s["F"], s["H"], device=DEVICE)
+    bank = synthesize_theta_batched({"decoder": p, "hn": hn},
+                                    p["embed"][torch.tensor([4, 3, 6], device=DEVICE)])
+    rows = torch.tensor([0, 1, 2, 2, 1, 7], dtype=torch.int32)  # 7 clamps to 2
+    theta_rows = {k: v[rows.clamp(0, 2).to(DEVICE).long()] for k, v in bank.items()}
+    return p, raw, bank, rows, theta_rows
+
+
+def small_exactness():
+    """K1: each kernel against its plain version at every step, the whole
+    decode against the plain version and against the plain ``beam_search``
+    (which runs every step, so the early exit must leave the result as it
+    is); the exit must fire on the SMALL_EXIT_SEEDS cases."""
+    s = SMALL
+    for seed, bias in SMALL_SEEDS + SMALL_EXIT_SEEDS:
         p, raw = small_params(seed, bias)
         dec = dk.BeamDecoder(p, None, max_steps=s["steps"], f32=True, block_images=4,
                              device=DEVICE)
         errs = check_pieces(dec, raw)
-        got, ref = dec(raw), dec.forward_plain(raw)
+        got = dec(raw)
+        steps = int(dec.last_steps)
+        ref = dec.forward_plain(raw)
+        require(int(dec.last_steps) == steps == errs["steps"], f"seed {seed}: steps differ")
         compare_results(got, ref, SMALL_SCORE_TOL, f"seed {seed}")
-        say(f"  seed {seed}: pieces max err {errs}; whole decode equal, "
+        oracle = beam_search(p, raw, k=dk.K, max_steps=s["steps"], device=DEVICE)
+        compare_results(got, oracle, ORACLE_SCORE_TOL, f"seed {seed} vs beam_search")
+        if (seed, bias) in SMALL_EXIT_SEEDS:
+            require(steps < s["steps"], f"seed {seed}, bias {bias}: no early exit")
+        say(f"  seed {seed}, </s> +{bias}: pieces max err {errs}; whole decode equal to the "
+            f"plain version and to beam_search after {steps}/{s['steps']} steps, "
             f"found {got.found.int().tolist()} lengths {got.lengths.tolist()}")
-    # an S=3 theta bank with one out-of-range style row
-    p, raw = small_params(31, 0.6)
-    hn = hypernet_init(gen(32), s["E"], s["E"] + s["F"], s["H"], device=DEVICE)
-    bank = synthesize_theta_batched({"decoder": p, "hn": hn},
-                                    p["embed"][torch.tensor([4, 3, 6], device=DEVICE)])
-    rows = torch.tensor([0, 1, 2, 2, 1, 7], dtype=torch.int32)
-    for bi in dk.TILE_IMAGES:
-        dec = dk.BeamDecoder(p, bank, max_steps=s["steps"], f32=True, block_images=bi,
-                             device=DEVICE)
-        errs = check_pieces(dec, raw, rows)
-        compare_results(dec(raw, rows), dec.forward_plain(raw, rows), SMALL_SCORE_TOL,
-                        f"bank, block_images {bi}")
-        say(f"  S=3 bank, block_images {bi}: pieces max err {errs}; whole decode equal")
+    # S=3 theta banks with one out-of-range style row
+    for seed, bias in SMALL_BANKS:
+        p, raw, bank, rows, _ = small_bank(seed, bias)
+        for bi in dk.TILE_IMAGES:
+            dec = dk.BeamDecoder(p, bank, max_steps=s["steps"], f32=True, block_images=bi,
+                                 device=DEVICE)
+            errs = check_pieces(dec, raw, rows)
+            compare_results(dec(raw, rows), dec.forward_plain(raw, rows), SMALL_SCORE_TOL,
+                            f"bank {seed}, block_images {bi}")
+            say(f"  S=3 bank {seed}, </s> +{bias}, block_images {bi}: pieces max err {errs}; "
+                f"whole decode equal")
 
 
-# ------------------------------------------------------------------ 3, 4
+def small_greedy_exactness():
+    """K2: the same, against the plain version and the plain ``greedy``,
+    single theta and an S=3 bank with one out-of-range style row."""
+    s = SMALL
+    for seed, bias in SMALL_SEEDS + SMALL_EXIT_SEEDS:
+        p, raw = small_params(seed, bias)
+        dec = dk.GreedyDecoder(p, None, max_len=MAX_LEN, f32=True, device=DEVICE)
+        errs = check_greedy_pieces(dec, raw)
+        got = dec(raw)
+        steps = int(dec.last_steps)
+        ref = dec.forward_plain(raw)
+        require(int(dec.last_steps) == steps == errs["steps"], f"seed {seed}: steps differ")
+        require(torch.equal(got, ref), f"greedy seed {seed}: kernel vs plain differ")
+        oracle = greedy(p, raw, max_len=MAX_LEN, device=DEVICE)
+        require(torch.equal(got, oracle), f"greedy seed {seed}: kernel vs greedy differ")
+        if (seed, bias) in SMALL_EXIT_SEEDS:
+            require(steps < MAX_LEN, f"greedy seed {seed}, bias {bias}: no early exit")
+        say(f"  greedy seed {seed}, </s> +{bias}: pieces max err {errs}; tokens equal to the "
+            f"plain version and to greedy after {steps}/{MAX_LEN} steps; "
+            f"row 0 {got[0].tolist()}")
+    for seed, bias in SMALL_BANKS:
+        p, raw, bank, rows, theta_rows = small_bank(seed, bias)
+        oracle = greedy(p, raw, max_len=MAX_LEN, gru_params=theta_rows, device=DEVICE)
+        dec = dk.GreedyDecoder(p, bank, max_len=MAX_LEN, f32=True, device=DEVICE)
+        errs = check_greedy_pieces(dec, raw, rows)
+        got = dec(raw, rows)
+        require(torch.equal(got, dec.forward_plain(raw, rows)), "greedy bank: kernel vs plain")
+        require(torch.equal(got, oracle), "greedy bank: kernel vs per-row-theta greedy")
+        say(f"  greedy S=3 bank {seed}, </s> +{bias} (row 7 clamped to 2): pieces max err "
+            f"{errs}; tokens equal to the plain version and to per-row-theta greedy")
+
+
+# ------------------------------------------------------------------ 4, 5
 def full_model():
     g = gen(0)
     decoder = attention_gru_init(g, NF, FO, E, H, V, device=DEVICE)
@@ -264,24 +375,24 @@ def check_outputs(results, what: str, min_found: float = 0.5, min_long: float = 
     require(long_share >= min_long, f"{what}: only {long_share} of images completed past step 1")
 
 
-def count_launches(run, what: str):
+def count_launches(run, what: str, kernels=dk.BEAM_KERNELS):
     """Drive one path with every kernel's count set to 0 just before it and
-    read just after it; each kernel must have launched on that path."""
+    read just after it; each kernel of the path must have launched on it."""
     for op in dk.KERNELS:
         op.launches = 0
     out = run()
     torch.cuda.synchronize()
-    launches = {op.name: op.launches for op in dk.KERNELS}
+    launches = {op.name: op.launches for op in kernels}
     say(f"  {what} launches {launches}")
     for name, n in launches.items():
         require(n > 0, f"{name} was not launched on the {what} path")
     return out, launches
 
 
-def mid_copy(dec_params):
-    """The decoder with +MID_BIAS on </s> in place of +EOS_BIAS."""
+def mid_copy(dec_params, bias: float = MID_BIAS):
+    """The decoder with +bias on </s> in place of +EOS_BIAS."""
     mid = dict(dec_params, fc={"w": dec_params["fc"]["w"], "b": dec_params["fc"]["b"].clone()})
-    mid["fc"]["b"][2] += MID_BIAS - EOS_BIAS
+    mid["fc"]["b"][2] += bias - EOS_BIAS
     return mid
 
 
@@ -314,17 +425,29 @@ def main_path(model, theta, batches):
     return launches, servers["bf16"]
 
 
+def biased(model):
+    """The decoder at +EOS_BIAS and its copy at +MID_BIAS on </s>."""
+    return {f"+{EOS_BIAS}": model["decoder"], f"+{MID_BIAS}": mid_copy(model["decoder"])}
+
+
+def style_bank(model):
+    """An S=3 theta bank (styles 4, 3, 6), one style row per image with row
+    5 out of range (7, clamped to style 2), and the same rows with 2 there."""
+    ids = torch.tensor([4, 3, 6], device=DEVICE)
+    bank = synthesize_theta_batched(model, style_table(model)[ids])
+    rows = np.random.RandomState(0).randint(0, 3, B).astype(np.int32)
+    rows[5] = 7
+    rows2 = rows.copy()
+    rows2[5] = 2
+    return bank, rows, rows2
+
+
 def mixed_styles(model, batches):
     """The S=3 bank path: f32 at +1.2 and at +MID_BIAS on </s>, and bf16 at
     +1.2, each with one out-of-range style row that must decode as the last
     style."""
-    ids = torch.tensor([4, 3, 6], device=DEVICE)
-    bank = synthesize_theta_batched(model, style_table(model)[ids])
-    rows = np.random.RandomState(0).randint(0, 3, B).astype(np.int32)
-    rows[5] = 7  # out of range: clamped to style 2
-    rows2 = rows.copy()
-    rows2[5] = 2
-    decs = {f"+{EOS_BIAS}": model["decoder"], f"+{MID_BIAS}": mid_copy(model["decoder"])}
+    bank, rows, rows2 = style_bank(model)
+    decs = biased(model)
     servers = {b: make_beam_server(d, bank, max_steps=MAX_STEPS, packed=True, f32=True,
                                    device=DEVICE) for b, d in decs.items()}
     bf16 = make_beam_server(model["decoder"], bank, max_steps=MAX_STEPS, packed=True,
@@ -355,8 +478,8 @@ def mixed_styles(model, batches):
     return launches
 
 
-# ------------------------------------------------------------------ 5
-def micro_batcher(server, batches):
+# ------------------------------------------------------------------ 6
+def micro_batcher(server, batches, what: str = "micro-batcher", kernels=dk.BEAM_KERNELS):
     n = 32
     feats = batches[0][:n].cpu().numpy()
     direct = fetch(server.decode_fn(feats))
@@ -374,14 +497,141 @@ def micro_batcher(server, batches):
                 th.join(timeout=300)
             require(not any(th.is_alive() for th in threads), "a request did not finish")
 
-    _, launches = count_launches(run, "micro-batcher")
+    _, launches = count_launches(run, what, kernels)
     for i in range(n):
         require(np.array_equal(answers[i], direct[i]), f"request {i} differs")
     say(f"  {n} concurrent requests equal their rows of a direct batched call")
     return launches
 
 
-# ------------------------------------------------------------------ 6
+# ------------------------------------------------------------------ 7 to 10
+def greedy_lengths(tokens: np.ndarray):
+    """Rows that emitted </s>, and their lengths up to and including it."""
+    hit = tokens == END
+    ended = hit.any(axis=1)
+    return ended, np.where(ended, hit.argmax(axis=1) + 1, 0)
+
+
+def check_greedy_outputs(results, what: str) -> None:
+    toks = np.concatenate(results)
+    require(toks.shape == (B * len(results), MAX_LEN), f"{what}: tokens {toks.shape}")
+    require(toks.dtype == np.int32 and (toks >= 0).all() and (toks < V).all(),
+            f"{what}: tokens out of range")
+    ended, length = greedy_lengths(toks)
+    after = (np.arange(MAX_LEN)[None, :] >= length[:, None]) & ended[:, None]
+    require((toks[after] == 0).all(), f"{what}: a token after </s> is not <pad>")
+    lens = length[ended]
+    span = f"lengths {lens.min()}..{lens.max()} (mean {lens.mean():.2f})" if lens.size else ""
+    say(f"  {what}: {ended.mean():.4f} of rows end within {MAX_LEN} steps, {span}")
+
+
+def greedy_agreement(got, ref, what: str, enforce: bool) -> float:
+    """Share of rows whose tokens are identical."""
+    g, r = np.concatenate(got), np.concatenate(ref)
+    same = (g == r).all(axis=1)
+    rate = float(same.mean())
+    say(f"  {what}: {int(same.sum())}/{same.size} rows agree ({rate:.4f}) [{CARD}]")
+    if enforce:
+        for i in np.flatnonzero(~same)[:10]:
+            say(f"  {what} mismatch row {i}: {g[i].tolist()} vs {r[i].tolist()}")
+        require(rate >= FULL_AGREEMENT, f"{what}: agreement {rate} < {FULL_AGREEMENT}")
+    return rate
+
+
+def greedy_servers(model, gru_params):
+    return {(b, k): make_greedy_server(d, gru_params, max_len=MAX_LEN, f32=(k == "f32"),
+                                       device=DEVICE)
+            for b, d in biased(model).items() for k in ("f32", "bf16")}
+
+
+def greedy_check_against_plain(model, gru_params, served, items) -> None:
+    """f32 kernels against the f32 plain version (enforced), bf16 against
+    the bf16 and the f32 plain versions (printed), at both biases."""
+    for b, d in biased(model).items():
+        ref = {}
+        for k in ("f32", "bf16"):
+            plain = dk.GreedyDecoder(d, gru_params, max_len=MAX_LEN, f32=(k == "f32"),
+                                     device=DEVICE)
+            ref[k] = [plain.forward_plain(*it).cpu().numpy() for it in items]
+        greedy_agreement(served[(b, "f32")], ref["f32"],
+                         f"greedy f32 kernel vs plain, </s> {b}", enforce=True)
+        greedy_agreement(served[(b, "bf16")], ref["bf16"],
+                         f"greedy bf16 kernel vs plain, </s> {b}", enforce=False)
+        greedy_agreement(served[(b, "bf16")], ref["f32"],
+                         f"greedy bf16 kernel vs f32 plain, </s> {b}", enforce=False)
+
+
+def greedy_main_path(model, theta, batches):
+    """Single style through make_greedy_server: f32 and bf16, at +1.2 and
+    +MID_BIAS on </s>."""
+    servers = greedy_servers(model, theta)
+    served, launches = count_launches(
+        lambda: {key: list(s.map(batches)) for key, s in servers.items()},
+        "greedy main-path", dk.GREEDY_KERNELS)
+    for (b, k), res in served.items():
+        check_greedy_outputs(res, f"greedy served {k}, </s> {b}")
+    greedy_check_against_plain(model, theta, served, [(f,) for f in batches])
+    return launches, servers[(f"+{MID_BIAS}", "bf16")]
+
+
+def greedy_mixed_styles(model, batches):
+    """The S=3 bank through make_greedy_server, f32 and bf16 at both biases,
+    with style row 7 that must decode as style 2."""
+    bank, rows, rows2 = style_bank(model)
+    servers = greedy_servers(model, bank)
+    items = [(f, rows) for f in batches]
+
+    def run():
+        got = {key: list(s.map(items)) for key, s in servers.items()}
+        clamped = {key: list(s.map([(batches[0], rows2)]))[0] for key, s in servers.items()
+                   if key[1] == "f32"}
+        return got, clamped
+
+    (got, clamped), launches = count_launches(run, "greedy mixed-style", dk.GREEDY_KERNELS)
+    for (b, k), res in got.items():
+        check_greedy_outputs(res, f"greedy mixed {k}, </s> {b}")
+    greedy_check_against_plain(model, bank, got, items)
+    for (b, k), c in clamped.items():
+        require(np.array_equal(c[5], got[(b, k)][0][5]),
+                f"greedy mixed {b}: style row 7 is not clamped to 2")
+        say(f"  greedy mixed f32, </s> {b}: style row 7 decodes as style 2 (clamped)")
+    return launches
+
+
+def steps_run(model, theta, batches):
+    """Steps the decoders actually run on one batch, with the early exit:
+    at +1.2 on </s> both must stop before their last step.  Then, for the
+    first benchmark's choice of a bias that gives realistic caption lengths,
+    the steps, the share of captions that end and their lengths at other
+    biases (bf16, single style)."""
+    for b, d in biased(model).items():
+        for k in ("f32", "bf16"):
+            beam = dk.BeamDecoder(d, theta, max_steps=MAX_STEPS, f32=(k == "f32"), device=DEVICE)
+            beam(batches[0])
+            grd = dk.GreedyDecoder(d, theta, max_len=MAX_LEN, f32=(k == "f32"), device=DEVICE)
+            grd(batches[0])
+            steps = (int(beam.last_steps), int(grd.last_steps))
+            say(f"  </s> {b}, {k}: beam ran {steps[0]}/{MAX_STEPS} steps, greedy "
+                f"{steps[1]}/{MAX_LEN} (B={B})")
+            if b == f"+{EOS_BIAS}":
+                require(steps[0] < MAX_STEPS, f"beam at {b} ({k}) did not exit early")
+                require(steps[1] < MAX_LEN, f"greedy at {b} ({k}) did not exit early")
+    for bias in SWEEP_BIASES:
+        d = mid_copy(model["decoder"], bias)
+        beam = dk.BeamDecoder(d, theta, max_steps=MAX_STEPS, device=DEVICE)
+        res = fetch(beam(batches[0]))
+        grd = dk.GreedyDecoder(d, theta, max_len=MAX_LEN, device=DEVICE)
+        ended, length = greedy_lengths(fetch(grd(batches[0])))
+        found = res.found
+        blen = res.lengths[found]
+        say(f"  </s> +{bias}, bf16: beam {int(beam.last_steps)}/{MAX_STEPS} steps, "
+            f"{found.mean():.4f} complete, mean length {blen.mean() if blen.size else 0:.2f} "
+            f"(incl. the start token); greedy {int(grd.last_steps)}/{MAX_LEN} steps, "
+            f"{ended.mean():.4f} end, mean length "
+            f"{length[ended].mean() if ended.any() else 0:.2f} (B={B})")
+
+
+# ------------------------------------------------------------------ 11
 def device_ms(fn, iters: int) -> float:
     """Device time per call: the card sleeps while the host queues the
     calls, so the events measure the kernels back to back."""
@@ -417,33 +667,70 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def timings(model, theta, batches, launches, server, launches_mixed, launches_micro):
+def kernel_entry(name, op, kind, source, replaces, fn, plain, lib, n_bytes, flops, err,
+                 wdt, paths, per_batch):
+    """Time one kernel, its plain version and its library yardstick, and
+    give its line of the ``kernels`` record."""
+    ms = device_ms(fn, 50)
+    plain_ms = wall_ms(plain, 5)
+    lib_ms = device_ms(lib, 20) if lib is not None else None
+    bms, by = bound_ms(n_bytes, flops, wdt)
+    launches = {path: counts[op.name] for path, counts in paths[kind].items()}
+    say(f"  {name}: {ms:.4f} ms/launch, {launches['main'] // per_batch} launches per "
+        f"batch, bound {bms:.4f} ms by {by}, plain {plain_ms:.4f} ms, library "
+        f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}, max abs err {err:.3e} "
+        f"(B={B}, bf16 weights) [{CARD}]")
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches["main"], "launches_mixed": launches["mixed"],
+        "launches_micro": launches["micro"], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+    }
+
+
+def cell_cost(feats, att1, h, tok, styles, w, h_new):
+    """Bytes and operations of one cell step over ``h``'s rows."""
+    rows = h.shape[0]
+    S, In, G = w["wih_t"].shape
+    n_bytes = (nbytes(feats, att1, h, tok, styles, w["ua_w"], w["ua_b"], w["va"],
+                      w["wih_t"], w["whh_t"], w["bih"], w["bhh"], h_new)
+               + rows * E * w["emb"].element_size())
+    return n_bytes, 2 * rows * (H * H + 2 * R * H + R * FO + In * G + H * G)
+
+
+BEAM_SOURCE = "captionax_torch/ops/csrc/beam_decode.cu"
+GREEDY_SOURCE = "captionax_torch/ops/csrc/greedy_decode.cu"
+BEAM_TPU = "captionax/ops/decode_kernel.py:555"
+GREEDY_TPU = "captionax/ops/decode_kernel.py:329"
+
+
+def beam_times(model, theta, batches, paths):
+    """K1's kernels at step 1 of a full-width batch (bf16 weights).  The
+    exit flags are set open, so every timed launch does its whole work."""
     dec = dk.BeamDecoder(model["decoder"], theta, max_steps=MAX_STEPS, device=DEVICE)
     feats, att1, h0, styles = dec.prepare(batches[0], None)
     w = dec.weights()
     wdt = w["fc_w"].dtype
     state = dk._init_state(h0, MAX_STEPS)
-    h1 = dk.beam_cell_step(feats, att1, state["h"], state["tok"], styles, 0, w)
-    dk.beam_select(*dk.logits_top3_partial(h1, w["fc_w"], w["fc_b"]), h1, state, 0, 2)
+    h1 = dk.cell_step(feats, att1, state["h"], state["tok"], styles, 0, w)
+    dk.beam_select(*dk.logits_top3_partial(h1, w["fc_w"], w["fc_b"]), h1, state, 0, END)
     state["hist_in"], state["hist_out"] = state["hist_out"], state["hist_in"]
+    state["run"].fill_(1)
     t = 1  # a step with real embeddings and three live beams per image
     rows = B * dk.K
-    S, In, G = w["wih_t"].shape
     vp = w["fc_w"].shape[1]
     C = vp // dk.CHUNK
     T = MAX_STEPS + 1
+    per_batch = N_BATCHES * 2  # the main path serves each batch at f32 and bf16
     out = []
 
-    cell = lambda: dk.beam_cell_step(feats, att1, state["h"], state["tok"], styles, t, w)
-    cell_plain = lambda: dk.beam_cell_step_plain(feats, att1, state["h"], state["tok"],
-                                                 styles, t, w)
+    cell = lambda: dk.cell_step(feats, att1, state["h"], state["tok"], styles, t, w)
+    cell_plain = lambda: dk.cell_step_plain(feats, att1, state["h"], state["tok"], styles, t, w)
     hk, hp = cell(), cell_plain()
-    cell_bytes = (nbytes(feats, att1, state["h"], state["tok"], styles, w["ua_w"], w["ua_b"],
-                         w["va"], w["wih_t"], w["whh_t"], w["bih"], w["bhh"], hk)
-                  + rows * E * w["emb"].element_size())
-    cell_flops = 2 * rows * (H * H + 2 * R * H + R * FO + In * G + H * G)
-    out.append(("beam_cell_step", cell, cell_plain, None, cell_bytes, cell_flops,
-                (hk - hp).abs().max().item()))
+    out.append(kernel_entry(
+        "cell_step (beam rows)", dk.CELL, "beam", BEAM_SOURCE, BEAM_TPU, cell, cell_plain,
+        None, *cell_cost(feats, att1, state["h"], state["tok"], styles, w, hk),
+        (hk - hp).abs().max().item(), wdt, paths, per_batch))
 
     logits = lambda: dk.logits_top3_partial(hp, w["fc_w"], w["fc_b"])
     logits_plain = lambda: dk.logits_top3_partial_plain(hp, w["fc_w"], w["fc_b"])
@@ -457,66 +744,245 @@ def timings(model, theta, batches, launches, server, launches_mixed, launches_mi
     idx_diff = (pk[1] != pp[1]).any(dim=2).float().mean().item()
     say(f"  (b) full width: share of (row, chunk) top-3 index lists that differ "
         f"kernel vs plain: {idx_diff:.2e}")
-    out.append(("logits_top3_partial", logits, logits_plain, logits_library,
-                nbytes(hp, w["fc_w"], w["fc_b"], *pk), 2 * rows * H * vp,
-                (pk[0] - pp[0]).abs().max().item()))
+    out.append(kernel_entry(
+        "logits_top3_partial", dk.LOGITS, "beam", BEAM_SOURCE, BEAM_TPU, logits, logits_plain,
+        logits_library, nbytes(hp, w["fc_w"], w["fc_b"], *pk), 2 * rows * H * vp,
+        (pk[0] - pp[0]).abs().max().item(), wdt, paths, per_batch))
 
     base = clone_state(state)
     sk, sp = clone_state(base), clone_state(base)
-    dk.beam_select(*pp, hp, sk, t, 2)
-    dk.beam_select_plain(*pp, hp, sp, t, 2)
+    dk.beam_select(*pp, hp, sk, t, END)
+    dk.beam_select_plain(*pp, hp, sp, t, END)
     improved = int((sk["best_len"] != base["best_len"]).sum().item())
     sel_bytes = (nbytes(*pp, hp, sk["h"], sk["hist_in"], sk["hist_out"])
                  + 2 * nbytes(sk["tok"], sk["score"])
                  + nbytes(sk["best_val"], sk["best_len"], sk["found"])
                  + improved * T * 4)
     scratch = clone_state(base)
-    select = lambda: dk.beam_select(*pp, hp, scratch, t, 2)
+    select = lambda: dk.beam_select(*pp, hp, scratch, t, END)
     scratch_plain = clone_state(base)
-    select_plain = lambda: dk.beam_select_plain(*pp, hp, scratch_plain, t, 2)
-    out.append(("beam_select", select, select_plain, None, sel_bytes, 0,
-                (sk["score"] - sp["score"]).abs().max().item()))
-
-    kernels = []
-    for name, fn, plain, lib, n_bytes, flops, err in out:
-        ms = device_ms(fn, 50)
-        plain_ms = wall_ms(plain, 5)
-        lib_ms = device_ms(lib, 20) if lib is not None else None
-        bms, by = bound_ms(n_bytes, flops, wdt)
-        say(f"  {name}: {ms:.4f} ms/launch, {launches[name] // N_BATCHES // 2} launches per "
-            f"batch, bound {bms:.4f} ms by {by}, plain {plain_ms:.4f} ms, library "
-            f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}, max abs err {err:.3e} "
-            f"(B={B}, bf16 weights) [{CARD}]")
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "captionax_torch/ops/csrc/beam_decode.cu",
-            "replaces": "captionax/ops/decode_kernel.py:555",
-            "launches": launches[name], "launches_mixed": launches_mixed[name],
-            "launches_micro": launches_micro[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-        })
+    select_plain = lambda: dk.beam_select_plain(*pp, hp, scratch_plain, t, END)
+    out.append(kernel_entry(
+        "beam_select", dk.SELECT, "beam", BEAM_SOURCE, BEAM_TPU, select, select_plain, None,
+        sel_bytes, 0, (sk["score"] - sp["score"]).abs().max().item(), wdt, paths, per_batch))
 
     # f32 kernels at the same shapes, for the record
     dec32 = dk.BeamDecoder(model["decoder"], theta, max_steps=MAX_STEPS, f32=True,
                            device=DEVICE)
     f32_, a32, _, _ = dec32.prepare(batches[0], None)
     w32 = dec32.weights()
-    c32 = device_ms(lambda: dk.beam_cell_step(f32_, a32, state["h"], state["tok"], styles,
-                                              t, w32), 50)
+    c32 = device_ms(lambda: dk.cell_step(f32_, a32, state["h"], state["tok"], styles, t,
+                                         w32), 50)
     l32 = device_ms(lambda: dk.logits_top3_partial(hp, w32["fc_w"], w32["fc_b"]), 50)
-    say(f"  f32 weights: beam_cell_step {c32:.4f} ms, logits_top3_partial {l32:.4f} ms "
-        f"(B={B}) [{CARD}]")
+    say(f"  f32 weights: cell_step (beam rows) {c32:.4f} ms, logits_top3_partial "
+        f"{l32:.4f} ms (B={B}) [{CARD}]")
+    return out
 
+
+def greedy_times(model, theta, batches, paths):
+    """K2's kernels at step 1 of a full-width batch (bf16 weights, the
+    decoder at +MID_BIAS on </s>, so that most rows are still live), with
+    the exit flags open; (a) also at every instantiated row tile."""
+    dec = dk.GreedyDecoder(mid_copy(model["decoder"]), theta, max_len=MAX_LEN, device=DEVICE)
+    feats, att1, h0, styles = dec.prepare(batches[0], None)
+    w = dec.weights()
+    wdt = w["fc_w"].dtype
+    state = dk._init_greedy_state(h0, MAX_LEN)
+    cell_at = lambda br: functools.partial(dk.cell_step, zero_word_t0=False, block_rows=br)
+    h1 = cell_at(dk.GREEDY_BLOCK_ROWS)(feats, att1, state["h"], state["tok"], styles, 0, w)
+    dk.greedy_select(*dk.logits_top1_partial(h1, w["fc_w"], w["fc_b"]), h1, state, 0, END)
+    state["run"].fill_(1)
+    t = 1
+    rows = B
+    vp = w["fc_w"].shape[1]
+    C = vp // dk.CHUNK
+    per_batch = N_BATCHES * 4  # f32 and bf16 at two biases
+    out = []
+
+    args = (feats, att1, state["h"], state["tok"], styles, t, w)
+    cell = lambda: cell_at(dk.GREEDY_BLOCK_ROWS)(*args)
+    cell_plain = lambda: dk.cell_step_plain(*args, zero_word_t0=False)
+    hk, hp = cell(), cell_plain()
+    for br in dk.TILE_ROWS:  # the tiles that greedy does not use are held too
+        err = (cell_at(br)(*args) - hp).abs().max().item()
+        require(err <= FULL_SCORE_TOL, f"(a) greedy rows, {br} rows per block: {err}")
+    tiles = {br: device_ms(lambda br=br: cell_at(br)(*args), 50) for br in dk.TILE_ROWS}
+    say("  cell_step (greedy rows) by rows per block: "
+        + ", ".join(f"{br}: {ms:.4f} ms" for br, ms in tiles.items()) + f" (B={B}) [{CARD}]")
+    out.append(kernel_entry(
+        "cell_step (greedy rows)", dk.CELL, "greedy", BEAM_SOURCE, GREEDY_TPU, cell,
+        cell_plain, None, *cell_cost(*args[:5], w, hk), (hk - hp).abs().max().item(), wdt,
+        paths, per_batch))
+
+    logits = lambda: dk.logits_top1_partial(hp, w["fc_w"], w["fc_b"])
+    logits_plain = lambda: dk.logits_top1_partial_plain(hp, w["fc_w"], w["fc_b"])
+    h_lib = hp.to(wdt)
+
+    def logits_library():
+        x = torch.matmul(h_lib, w["fc_w"]).float() + w["fc_b"]
+        return x.reshape(rows, C, dk.CHUNK).max(dim=2)
+
+    pk, pp = logits(), logits_plain()
+    say(f"  (b1) full width: share of (row, chunk) argmaxes that differ kernel vs plain: "
+        f"{(pk[1] != pp[1]).float().mean().item():.2e}")
+    out.append(kernel_entry(
+        "logits_top1_partial", dk.LOGITS1, "greedy", GREEDY_SOURCE, GREEDY_TPU, logits,
+        logits_plain, logits_library, nbytes(hp, w["fc_w"], w["fc_b"], *pk),
+        2 * rows * H * vp, (pk[0] - pp[0]).abs().max().item(), wdt, paths, per_batch))
+
+    base = clone_state(state)
+    sk, sp = clone_state(base), clone_state(base)
+    dk.greedy_select(*pp, hp, sk, t, END)
+    dk.greedy_select_plain(*pp, hp, sp, t, END)
+    for k in sk:
+        require(torch.equal(sk[k], sp[k]), f"(c1) full width: {k} differs from the plain version")
+    # the timed launches repeat step t on a state that its first launch has
+    # updated: rows still live after it copy h and write their token
+    live = int((sk["done"] == 0).sum().item())
+    sel_bytes = nbytes(*pp) + live * (2 * H * 4 + 4) + rows * 4 * 3
+    scratch = clone_state(base)
+    select = lambda: dk.greedy_select(*pp, hp, scratch, t, END)
+    scratch_plain = clone_state(base)
+    select_plain = lambda: dk.greedy_select_plain(*pp, hp, scratch_plain, t, END)
+    out.append(kernel_entry(
+        "greedy_select", dk.GREEDY_SELECT, "greedy", GREEDY_SOURCE, GREEDY_TPU, select,
+        select_plain, None, sel_bytes, 0, (sk["h"] - sp["h"]).abs().max().item(), wdt, paths,
+        per_batch))
+    say(f"  (c1) full width: state equal to the plain version; {live}/{rows} rows live "
+        f"after step {t}")
+    return out
+
+
+def bare_launch_ms(op, call) -> float:
+    """Host time of the ctypes call alone that ``call`` makes through ``op``:
+    the wrapper's checks, views and output allocations left out."""
+    seen = []
+    op.launch = lambda symbol, *args: seen.append((symbol, args))
+    try:
+        keep = call()  # the outputs whose addresses the recorded call holds
+    finally:
+        del op.launch
+    symbol, args = seen[0]
+    fn = getattr(_cuda.library(), symbol)
+    ms = wall_ms(lambda: fn(*args), 200)
+    del keep
+    return ms
+
+
+def skipped_step_cost(model, theta, batches):
+    """Host time of each wrapper when its step's exit flag is 0: the kernels
+    return at entry, so this is what a step after the exit costs; and of the
+    bare ctypes launches within it."""
+    out = {}
+    for kind, decoder in (
+        ("beam", dk.BeamDecoder(model["decoder"], theta, max_steps=MAX_STEPS, device=DEVICE)),
+        ("greedy", dk.GreedyDecoder(model["decoder"], theta, max_len=MAX_LEN, device=DEVICE)),
+    ):
+        feats, att1, h0, styles = decoder.prepare(batches[0], None)
+        w = decoder.weights()
+        if kind == "beam":
+            state = dk._init_state(h0, MAX_STEPS)
+            cell = functools.partial(dk.cell_step, block_rows=dk.K * decoder.block_images)
+            logits, select = dk.logits_top3_partial, dk.beam_select
+        else:
+            state = dk._init_greedy_state(h0, MAX_LEN)
+            cell = functools.partial(dk.cell_step, zero_word_t0=False,
+                                     block_rows=dk.GREEDY_BLOCK_ROWS)
+            logits, select = dk.logits_top1_partial, dk.greedy_select
+        state["run"].zero_()
+        live = state["run"][1:]
+        h_new = cell(feats, att1, state["h"], state["tok"], styles, 1, w, live=live)
+        parts = logits(h_new, w["fc_w"], w["fc_b"], live=live)
+        calls = {
+            "a": (dk.CELL, lambda: cell(feats, att1, state["h"], state["tok"], styles, 1, w,
+                                        live=live)),
+            "b": (dk.LOGITS if kind == "beam" else dk.LOGITS1,
+                  lambda: logits(h_new, w["fc_w"], w["fc_b"], live=live)),
+            "c": (dk.SELECT if kind == "beam" else dk.GREEDY_SELECT,
+                  lambda: select(*parts, h_new, state, 1, END)),
+        }
+        times = {k: wall_ms(call, 200) for k, (_, call) in calls.items()}
+        bare = {k: bare_launch_ms(op, call) for k, (op, call) in calls.items()}
+        out[kind] = sum(times.values())
+        say(f"  a skipped {kind} step: {out[kind] * 1e3:.1f} us on the host ("
+            + ", ".join(f"({k}) {v * 1e3:.1f} us" for k, v in times.items())
+            + f"; kernels return at entry), of which the bare ctypes launches "
+            f"{sum(bare.values()) * 1e3:.1f} us ("
+            + ", ".join(f"({k}) {v * 1e3:.1f} us" for k, v in bare.items())
+            + f"); the rest is the wrappers' checks, views and allocations [{CARD}]")
+    return out
+
+
+def kernel_busy_ms(fn) -> float:
+    """The card's kernel and copy time during one call of ``fn``, from a
+    torch.profiler trace; 0.0 when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def decode_host_time(model, theta, batches):
+    """One bf16 decode of a full-width batch in the served loop's decoder, at
+    both </s> biases: the host time to issue it (no sync inside), its wall
+    time to the end of its last kernel, and the share of that wall time in
+    which the card ran kernels (a profiler trace of one more call)."""
+    for b, d in biased(model).items():
+        for kind, decoder, steps in (
+            ("beam", dk.BeamDecoder(d, theta, max_steps=MAX_STEPS, device=DEVICE), MAX_STEPS),
+            ("greedy", dk.GreedyDecoder(d, theta, max_len=MAX_LEN, device=DEVICE), MAX_LEN),
+        ):
+            decoder(batches[0])
+            torch.cuda.synchronize()
+            issue, wall = [], []
+            for x in batches * 2:
+                t0 = time.perf_counter()
+                decoder(x)
+                issue.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                wall.append(time.perf_counter() - t0)
+            issue_ms, decode_ms = np.median(issue) * 1e3, np.median(wall) * 1e3
+            run = int(decoder.last_steps)
+            try:
+                busy = kernel_busy_ms(lambda: decoder(batches[0]))
+                share = (f"card busy {busy:.3f} ms, {busy / decode_ms:.1%} of the wall time"
+                         if busy > 0 else "card busy time not measured (no device time traced)")
+            except Exception as exc:  # a measurement, not a check
+                share = f"card busy time not measured ({type(exc).__name__}: {exc})"
+            say(f"  {kind} decode, </s> {b}, {run}/{steps} steps run: host issues it in "
+                f"{issue_ms:.3f} ms ({issue_ms / steps * 1e3:.1f} us per issued step), wall "
+                f"{decode_ms:.3f} ms (medians of {len(issue)}); {share} [{CARD}]")
+
+
+def served_rates(model, theta, batches):
+    """Captions per second through the bf16 beam and greedy servers at both
+    </s> biases (host clock over 6 batches, after one warm-up batch; three
+    repeats, each printed, since the host's share varies between them)."""
     items = batches * 2
-    list(server.map(batches[:1]))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = list(server.map(items))
-    dt = time.perf_counter() - t0
-    require(len(outs) == len(items), "server dropped a batch")
-    say(f"  served bf16 path: {len(items) * B / dt:.1f} captions/s, {dt / len(items) * 1e3:.2f} "
-        f"ms per batch of {B} ({MAX_STEPS} steps, k=3) [{CARD}]")
-    return kernels
+    for b, d in biased(model).items():
+        servers = {
+            "beam": make_beam_server(d, theta, max_steps=MAX_STEPS, packed=True, device=DEVICE),
+            "greedy": make_greedy_server(d, theta, max_len=MAX_LEN, device=DEVICE),
+        }
+        for kind, server in servers.items():
+            list(server.map(batches[:1]))
+            rates = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = list(server.map(items))
+                dt = time.perf_counter() - t0
+                require(len(outs) == len(items), "server dropped a batch")
+                rates.append(len(items) * B / dt)
+            steps = f"{MAX_STEPS} steps, k=3" if kind == "beam" else f"max_len {MAX_LEN}"
+            say(f"  served bf16 {kind}, </s> {b}: "
+                + ", ".join(f"{r:.1f}" for r in rates) + " captions/s ("
+                + ", ".join(f"{B / r * 1e3:.2f}" for r in rates)
+                + f" ms per batch of {B}; {steps}) [{CARD}]")
 
 
 def _out_of_time(signum, frame):
@@ -534,18 +1000,33 @@ def main() -> int:
     t0 = time.perf_counter()
     with Phase("1 card and build"):
         card_and_build()
-    with Phase("2 small-shape exactness"):
+    with Phase("2 small-shape exactness, beam"):
         small_exactness()
-    with Phase("3 full width, main path"):
+    with Phase("3 small-shape exactness, greedy"):
+        small_greedy_exactness()
+    paths = {"beam": {}, "greedy": {}}
+    with Phase("4 full width, beam main path"):
         model, theta, batches = full_model()
-        launches, server = main_path(model, theta, batches)
-    with Phase("4 mixed styles"):
-        launches_mixed = mixed_styles(model, batches)
-    with Phase("5 micro-batcher"):
-        launches_micro = micro_batcher(server, batches)
-    with Phase("6 times"):
-        kernels = timings(model, theta, batches, launches, server, launches_mixed,
-                          launches_micro)
+        paths["beam"]["main"], server = main_path(model, theta, batches)
+    with Phase("5 beam, mixed styles"):
+        paths["beam"]["mixed"] = mixed_styles(model, batches)
+    with Phase("6 beam, micro-batcher"):
+        paths["beam"]["micro"] = micro_batcher(server, batches)
+    with Phase("7 full width, greedy main path"):
+        paths["greedy"]["main"], gserver = greedy_main_path(model, theta, batches)
+    with Phase("8 greedy, mixed styles"):
+        paths["greedy"]["mixed"] = greedy_mixed_styles(model, batches)
+    with Phase("9 greedy, micro-batcher"):
+        paths["greedy"]["micro"] = micro_batcher(gserver, batches, "greedy micro-batcher",
+                                                 dk.GREEDY_KERNELS)
+    with Phase("10 steps actually run"):
+        steps_run(model, theta, batches)
+    with Phase("11 times"):
+        kernels = beam_times(model, theta, batches, paths)
+        kernels += greedy_times(model, theta, batches, paths)
+        skipped_step_cost(model, theta, batches)
+        decode_host_time(model, theta, batches)
+        served_rates(model, theta, batches)
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))

@@ -163,6 +163,32 @@ def test_theta_bank_matches_per_image_scan():
     assert_same(got_scan, ref)
 
 
+@pytest.mark.parametrize("seed,bias", [(5, 1.2), (7, 1.2), (11, 0.3), (5, 0.5)])
+def test_early_exit(seed, bias):
+    """The plain K1 path stops once no beam can improve its image's best
+    completion, at the step captionax's kernel stops (its ``debugt`` probe
+    reports the exit step, one tile here), and its result equals both that
+    kernel's and the scan beam search's, which runs every step."""
+    params, raw = make(seed, bias)
+    dec = tdk.BeamDecoder(carry(params), max_steps=25, f32=True, device="cpu")
+    got = dec(torch.from_numpy(raw))
+    steps = int(dec.last_steps)
+    assert steps < 25
+    assert_same(got, jdk.fused_beam_search(params, raw, max_steps=25, block_images=8,
+                                           interpret=True, f32=True))
+    assert_same(got, j_beam_search(params, raw, k=3, max_steps=25))
+    probe = jdk.fused_beam_search(params, raw, max_steps=25, block_images=8,
+                                  interpret=True, f32=True, ablate="debugt")
+    assert (np.asarray(probe.lengths) == steps).all()
+
+
+def test_no_exit_runs_every_step():
+    params, raw = make(5, 0.35)
+    dec = tdk.BeamDecoder(carry(params), max_steps=25, f32=True, device="cpu")
+    dec(torch.from_numpy(raw))
+    assert int(dec.last_steps) == 25
+
+
 def test_theta_bank_requires_style_rows():
     params, raw, thetas = _bank()
     with pytest.raises(ValueError, match="style_rows"):
@@ -192,7 +218,7 @@ class TestPieces:
         rows = B * 3
         h = torch.from_numpy(np.random.RandomState(1).randn(rows, H).astype(np.float32))
         tok = torch.from_numpy(np.random.RandomState(2).randint(0, V, rows).astype(np.int32))
-        got = tdk.beam_cell_step(feats, att1, h, tok, styles, 3, w)
+        got = tdk.cell_step(feats, att1, h, tok, styles, 3, w)
         jw = jdk._pack_weights(params, None, jnp.float32)
         img = np.arange(rows) // 3
         word = np.asarray(params["embed"])[tok.numpy()]
@@ -209,10 +235,10 @@ class TestPieces:
             ref = jdk._cell_core(word, h.numpy(), f_r, a_r, jw["ua_w"], jw["ua_b"], jw["va"],
                                  jw["wih_t"], jw["whh_t"], jw["bih"], jw["bhh"], H)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
-        zero = tdk.beam_cell_step(feats, att1, h, tok, styles, 0, w)
+        zero = tdk.cell_step(feats, att1, h, tok, styles, 0, w)
         tok0 = torch.zeros_like(tok)
         np.testing.assert_array_equal(
-            zero.numpy(), tdk.beam_cell_step(feats, att1, h, tok0, styles, 0, w).numpy())
+            zero.numpy(), tdk.cell_step(feats, att1, h, tok0, styles, 0, w).numpy())
 
     @pytest.mark.parametrize("tie", [False, True])
     def test_partials_merge_to_chunked_top3(self, tie):
@@ -248,7 +274,7 @@ class TestPieces:
         h = meta(h0.repeat_interleave(3, 0))
         tok = torch.zeros(h.shape[0], dtype=torch.int32, device="meta")
         with pytest.raises(ValueError, match="no kernel"):
-            tdk.beam_cell_step(meta(feats), meta(att1), h, tok, meta(styles), 0, w)
+            tdk.cell_step(meta(feats), meta(att1), h, tok, meta(styles), 0, w)
         with pytest.raises(ValueError, match="no kernel"):
             tdk.logits_top3_partial(h, w["fc_w"], w["fc_b"])
 

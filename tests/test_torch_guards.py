@@ -94,6 +94,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
         make_beam_server(params, max_steps=2)
 
 
+def test_greedy_entry_points_default_to_the_card(monkeypatch):
+    from captionax_torch.decode.search import greedy, sample
+    from captionax_torch.decode.serving import make_greedy_server
+    from captionax_torch.models.decoder import attention_gru_init
+    from captionax_torch.ops.decode_kernel import fused_greedy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = attention_gru_init(torch.Generator().manual_seed(0), 8, 4, 4, 4, 10,
+                                device="cpu")
+    raw = torch.zeros((2, 3, 8))
+    for call in (lambda: fused_greedy(params, raw, max_len=2),
+                 lambda: make_greedy_server(params, max_len=2),
+                 lambda: greedy(params, raw, max_len=2),
+                 lambda: sample(params, raw, None, max_len=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
 def _run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""

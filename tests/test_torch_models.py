@@ -183,6 +183,26 @@ def case_synthesize_theta_batched():
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}
 
 
+def test_style_names_match_captionax():
+    from captionax.data.flickr import STYLE_NAMES as J_STYLE_NAMES
+    from captionax_torch.data.flickr import STYLE_NAMES
+
+    assert STYLE_NAMES == J_STYLE_NAMES
+
+
+@pytest.mark.parametrize("dedicated", [False, True])
+@pytest.mark.parametrize("style", ["factual", "humour", "romantic"])
+def test_resolve_style_id(tiny_vocab, dedicated, style):
+    """The id space follows the model: 0/1/2 with a dedicated table, the
+    vocab id otherwise (``humour`` is ``<unk>`` there, as in the reference)."""
+    model = {"decoder": decoder_params(), "hn": hypernet_params()}
+    if dedicated:
+        model["style_embed"] = jnp.asarray(rand(23, 3, E))
+    ref = jsteps.resolve_style_id(model, tiny_vocab, style)
+    got = tsteps.resolve_style_id(carry(model), tiny_vocab, style)
+    assert got == ref and isinstance(got, int)
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_matches_captionax(name):
     ref, got = CASES[name]()

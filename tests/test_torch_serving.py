@@ -1,6 +1,7 @@
 """The port's serving front end on the CPU: the packed result layout round
-trips, and the beam server, the pipelined stream and the micro-batcher give
-exactly what a direct call gives (same code path, so tolerance: none)."""
+trips, and the beam and greedy servers, the pipelined stream and the
+micro-batcher give exactly what a direct call gives (same code path, so
+tolerance: none)."""
 
 import threading
 
@@ -14,12 +15,13 @@ from captionax_torch.decode.serving import (
     PipelinedDecoder,
     fetch,
     make_beam_server,
+    make_greedy_server,
     pack_beam_result,
     unpack_beam_result,
 )
 from captionax_torch.models.decoder import attention_gru_init
 from captionax_torch.models.hypernet import hypernet_init
-from captionax_torch.ops.decode_kernel import fused_beam_search
+from captionax_torch.ops.decode_kernel import fused_beam_search, fused_greedy
 from captionax_torch.train.steps import synthesize_theta, synthesize_theta_batched
 
 torch.set_num_threads(1)
@@ -131,3 +133,51 @@ def test_micro_batcher_equals_direct_call(model):
     for i in range(n):
         np.testing.assert_array_equal(answers[i], direct[i])
     np.testing.assert_array_equal(again, direct[0])
+
+
+def test_greedy_server_equals_direct_call(model):
+    theta = synthesize_theta(model, 4)
+    srv = make_greedy_server(model["decoder"], theta, max_len=STEPS, f32=True, device="cpu")
+    batches = [feats(1, 3), feats(2, 3), feats(3, 3)]
+    outs = list(srv.map(batches))
+    assert len(outs) == 3
+    for f, out in zip(batches, outs):
+        ref = fused_greedy(model["decoder"], torch.from_numpy(f), gru_params=theta,
+                           max_len=STEPS, f32=True, device="cpu")
+        assert out.dtype == np.int32 and out.shape == (3, STEPS)
+        np.testing.assert_array_equal(out, ref.numpy())
+
+
+def test_mixed_style_greedy_server(model):
+    bank = synthesize_theta_batched(model, model["decoder"]["embed"][[4, 3, 6]])
+    srv = make_greedy_server(model["decoder"], bank, max_len=STEPS, f32=True, device="cpu")
+    rows = np.array([0, 2, 1, 7], np.int32)
+    f = feats(4, 4)
+    (out,) = list(srv.map([(f, rows)]))
+    ref = fused_greedy(model["decoder"], torch.from_numpy(f), gru_params=bank,
+                       max_len=STEPS, f32=True, style_rows=torch.from_numpy(rows),
+                       device="cpu")
+    np.testing.assert_array_equal(out, ref.numpy())
+    with pytest.raises(ValueError, match="style_rows"):
+        list(srv.map([f]))
+
+
+def test_micro_batcher_with_the_greedy_server(model):
+    srv = make_greedy_server(model["decoder"], synthesize_theta(model, 4), max_len=STEPS,
+                             f32=True, device="cpu")
+    n = 5
+    f = feats(6, n)
+    direct = fetch(srv.decode_fn(f))
+    answers = [None] * n
+    with MicroBatcher(srv.decode_fn, batch_size=n, feature_shape=(R, NF)) as mb:
+        def ask(i):
+            answers[i] = mb.submit(f[i]).result(timeout=120)
+
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    for i in range(n):
+        np.testing.assert_array_equal(answers[i], direct[i])
