@@ -2,19 +2,28 @@
 
 Port of the attention-GRU part of ``captionax/models/decoder.py``: init,
 ``encode_features``, ``init_hidden`` (with the extra GRU layers applied
-once to the initial state, as the reference does) and ``decode_step``.
-The teacher-forced functions come with the training slice.
+once to the initial state, as the reference does), ``decode_step`` and the
+teacher-forced scoring passes of training, ``teacher_forced_hidden`` and
+``teacher_forced``.  Their time loop is a Python loop over the steps.
+
+Reference quirks kept: the teacher-forced step t=0 consumes a zeroed
+embedding and step t>0 the embedding of ``captions[:, t-1]``; scheduled
+sampling draws one coin per step for the whole batch and feeds back the
+argmax of ``log_softmax(prev_logits / sample_temp)``; extra GRU layers run
+after the cell at every step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from captionax_torch.core.runtime import DeviceLike
 from captionax_torch.models.attention import bahdanau_attention, bahdanau_init
 from captionax_torch.models.layers import (
+    embedding,
     embedding_init,
     linear,
     linear_init,
@@ -98,3 +107,112 @@ def decode_step(
     x = torch.cat([word_embed, context], dim=-1)
     h = _extra_layers(params, gru_cell(cell, x, h))
     return h, linear(params["fc"], h), attn
+
+
+def _remat(fn, remat: bool):
+    """``fn`` as is, or checkpointed: the backward recomputes its body
+    instead of keeping its intermediates (``jax.checkpoint``)."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def teacher_forced_hidden(
+    params: Params,
+    raw_features: torch.Tensor,
+    captions: torch.Tensor,
+    gru_params: Optional[Dict] = None,
+    remat: bool = False,
+    unroll: int = 1,
+    hoist_att1: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pure teacher-forcing recurrence without the vocab projection:
+    -> (hs [B, T, H], attn [B, T, R]).
+
+    ``remat`` checkpoints each step (``torch.utils.checkpoint``): the
+    backward keeps only the [B, H] state per step and recomputes the
+    attention.  ``hoist_att1`` computes ``att1 = W_a f`` once instead of in
+    every step (same contraction).  ``unroll`` is the JAX scan's unroll
+    factor; eager PyTorch has no counterpart, and it is accepted and
+    ignored."""
+    del unroll
+    features = encode_features(params, raw_features)
+    h = init_hidden(params, features)
+    embeds = embedding(params["embed"], captions.long())  # [B, T, E]
+    B, T, E = embeds.shape
+    zero_embed = torch.zeros((B, E), dtype=embeds.dtype, device=embeds.device)
+    cell = params["gru"] if gru_params is None else gru_params
+    att = params["attention"]
+    att1 = linear(att["W_a"], features) if hoist_att1 else None
+
+    def body(h, word_embed):
+        if hoist_att1:
+            context, attn = _attention_pre(att, att1, features, h)
+        else:  # recompute W_a f inside every step
+            context, attn = bahdanau_attention(att, features, h)
+        x = torch.cat([word_embed, context], dim=-1)
+        return _extra_layers(params, gru_cell(cell, x, h)), attn
+
+    step = _remat(body, remat)
+    hs, attns = [], []
+    for t in range(T):
+        h, attn = step(h, zero_embed if t == 0 else embeds[:, t - 1])
+        hs.append(h)
+        attns.append(attn)
+    return torch.stack(hs, dim=1), torch.stack(attns, dim=1)
+
+
+def teacher_forced(
+    params: Params,
+    raw_features: torch.Tensor,
+    captions: torch.Tensor,
+    sample_prob: float = 0.0,
+    sample_temp: float = 0.5,
+    generator: Optional[torch.Generator] = None,
+    gru_params: Optional[Dict] = None,
+    remat: bool = False,
+    coins: Optional[Union[torch.Tensor, Sequence[float]]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced (optionally scheduled-sampling) scoring pass.
+    -> (logits [B, T, V], attn [B, T, R]).
+
+    Scheduled sampling runs when ``sample_prob > 0`` and a coin source is
+    given: ``coins`` (T numbers in [0, 1)), or else T draws of ``torch.rand``
+    from ``generator`` (a CPU generator).  Step t > 0 feeds back the argmax
+    of ``log_softmax(prev_logits / sample_temp)`` when its coin is below
+    ``sample_prob``, so at ``sample_prob=1.0`` every step after the first
+    does, whatever the coins."""
+    if not (sample_prob > 0.0 and (coins is not None or generator is not None)):
+        hs, attn = teacher_forced_hidden(params, raw_features, captions,
+                                         gru_params=gru_params, remat=remat)
+        return linear(params["fc"], hs), attn
+
+    features = encode_features(params, raw_features)
+    h = init_hidden(params, features)
+    embeds = embedding(params["embed"], captions.long())  # [B, T, E]
+    B, T, E = embeds.shape
+    if coins is None:
+        coins = torch.rand((T,), generator=generator)
+    coins = [float(c) for c in coins]
+    if len(coins) != T:
+        raise ValueError(f"{len(coins)} coins for {T} steps")
+    fc_w = params["fc"]["w"]
+    zero_embed = torch.zeros((B, E), dtype=embeds.dtype, device=embeds.device)
+
+    def body(h, prev_logits, tf_embed, take_sample: bool):
+        if take_sample:
+            ids = torch.argmax(torch.log_softmax(prev_logits / sample_temp, dim=-1), dim=-1)
+            word_embed = embedding(params["embed"], ids)
+        else:
+            word_embed = tf_embed
+        return decode_step(params, word_embed, h, features, gru_params)
+
+    step = _remat(body, remat)
+    logits = torch.zeros((B, fc_w.shape[1]), dtype=fc_w.dtype, device=fc_w.device)
+    all_logits, attns = [], []
+    for t in range(T):
+        tf_embed = zero_embed if t == 0 else embeds[:, t - 1]
+        h, logits, attn = step(h, logits, tf_embed, t > 0 and coins[t] < sample_prob)
+        all_logits.append(logits)
+        attns.append(attn)
+    return torch.stack(all_logits, dim=1), torch.stack(attns, dim=1)

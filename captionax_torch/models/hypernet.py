@@ -17,7 +17,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from captionax_torch.core.runtime import DeviceLike
-from captionax_torch.models.layers import mlp, mlp_init
+from captionax_torch.models.layers import embedding, mlp, mlp_init
 
 Params = Dict[str, object]
 _NAMES = ("w_ih", "w_hh", "b_ih", "b_hh")
@@ -85,6 +85,12 @@ def hypernet_apply_flat(hn: Params, style_embed: torch.Tensor) -> torch.Tensor:
     """The concatenated flat theta, in generation order."""
     theta = hypernet_apply(hn, style_embed)
     return torch.cat([theta[k].reshape(-1) for k in _NAMES])
+
+
+def style_embedding_from_vocab(decoder_params: Params,
+                               style_id: torch.Tensor) -> torch.Tensor:
+    """FlickrStyle conditioning: the decoder embedding row of the style token."""
+    return embedding(decoder_params["embed"], style_id)
 
 
 def theta_param_count(input_dim: int, hidden_dim: int) -> int:

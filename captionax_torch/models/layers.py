@@ -76,3 +76,12 @@ def mlp(params: Params, x: torch.Tensor, act=F.leaky_relu,
         if i < n - 1 or final_act:
             x = act(x)
     return x
+
+
+def count_params(tree) -> int:
+    """Number of scalars in a tree (dicts and lists) of tensors."""
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_params(v) for v in tree)
+    return tree.numel()

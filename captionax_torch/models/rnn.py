@@ -3,7 +3,9 @@
 Port of ``captionax/models/rnn.py`` (GRU only; the LSTM comes later).  The
 tensor set and gate order are ``torch.nn.GRUCell``'s — ``w_ih [3H, In]``,
 ``w_hh [3H, H]``, ``b_ih [3H]``, ``b_hh [3H]`` — which is exactly what the
-hypernetwork emits.
+hypernetwork emits.  As in the JAX package, the gate products are taken in
+f32 (from the bf16 values under bf16 compute) and the new state is cast
+back to the carry's dtype.
 """
 
 from __future__ import annotations
@@ -38,13 +40,30 @@ def gru_cell(params: CellParams, x: torch.Tensor, h: torch.Tensor) -> torch.Tens
     The weights may carry a leading batch axis (``w_ih [B, 3H, In]``, ...):
     one hypernet-synthesized cell per row, for mixed-style batches."""
     hd = h.shape[-1]
-    if params["w_ih"].dim() == 3:
-        gi = torch.einsum("bgi,bi->bg", params["w_ih"], x) + params["b_ih"]
-        gh = torch.einsum("bgh,bh->bg", params["w_hh"], h) + params["b_hh"]
+    w_ih, w_hh = params["w_ih"].float(), params["w_hh"].float()
+    if w_ih.dim() == 3:
+        gi = torch.einsum("bgi,bi->bg", w_ih, x.float()) + params["b_ih"]
+        gh = torch.einsum("bgh,bh->bg", w_hh, h.float()) + params["b_hh"]
     else:
-        gi = torch.matmul(x, params["w_ih"].t()) + params["b_ih"]
-        gh = torch.matmul(h, params["w_hh"].t()) + params["b_hh"]
+        gi = torch.matmul(x.float(), w_ih.t()) + params["b_ih"]
+        gh = torch.matmul(h.float(), w_hh.t()) + params["b_hh"]
     r = torch.sigmoid(gi[..., :hd] + gh[..., :hd])
     z = torch.sigmoid(gi[..., hd:2 * hd] + gh[..., hd:2 * hd])
     n = torch.tanh(gi[..., 2 * hd:] + r * gh[..., 2 * hd:])
-    return (1.0 - z) * n + z * h
+    return ((1.0 - z) * n + z * h).to(h.dtype)
+
+
+def gru_theta_size(input_dim: int, hidden_dim: int) -> int:
+    """Flat size of the hypernet-generated GRU tensor set."""
+    return 3 * hidden_dim * (input_dim + hidden_dim + 2)
+
+
+def gru_theta_unflatten(theta: torch.Tensor, input_dim: int,
+                        hidden_dim: int) -> CellParams:
+    """Flat [P] vector -> GRU cell dict, in generation order (w_ih, w_hh,
+    b_ih, b_hh — GRUCell's ``named_parameters`` order)."""
+    g = 3 * hidden_dim
+    sizes = [g * input_dim, g * hidden_dim, g, g]
+    w_ih, w_hh, b_ih, b_hh = torch.split(theta, sizes)
+    return {"w_ih": w_ih.reshape(g, input_dim), "w_hh": w_hh.reshape(g, hidden_dim),
+            "b_ih": b_ih, "b_hh": b_hh}

@@ -2,7 +2,8 @@
 
 The kernels have a plain C interface: one ``nvcc`` call compiles every
 ``csrc/*.cu`` (``beam_decode.cu``: the cell step and K1; ``greedy_decode.cu``:
-K2; both include ``decode_common.cuh``) for ``sm_90a`` into one shared
+K2; ``train_recurrence.cu``: K3, the recurrence of training forward and
+backward; all include ``decode_common.cuh``) for ``sm_90a`` into one shared
 library under ``captionax_torch/_build/`` at first use, and ``ctypes`` loads
 it.  The library's file name carries a hash of every source and header and
 of the flags, so an edited source is rebuilt and a stale library is never
@@ -40,6 +41,12 @@ SIGNATURES = {
     "logits_top1_partial_f32": [_P] * 6 + [_I] * 3 + [_P],
     "logits_top1_partial_bf16": [_P] * 6 + [_I] * 3 + [_P],
     "greedy_select": [_P] * 8 + [_I] * 6 + [_P],
+    "train_fwd_f32": [_P] * 12 + [_I] * 7 + [_P],
+    "train_fwd_bf16": [_P] * 12 + [_I] * 7 + [_P],
+    "train_bwd_recurrence_f32": [_P] * 23 + [_I] * 7 + [_P],
+    "train_bwd_recurrence_bf16": [_P] * 23 + [_I] * 7 + [_P],
+    "train_wgrad_partial": [_P] * 6 + [_I] * 4 + [_P],
+    "train_wgrad_reduce": [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_P],
 }
 
 

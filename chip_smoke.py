@@ -5,12 +5,13 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the decode kernels (K1 beam, K2 greedy) with one nvcc call,
-holds each kernel and each whole decode against their plain PyTorch
-versions and against the plain oracles that run every step (small shapes,
-then the full width of the hypernet attention-GRU model), serves batches
-through the port's beam and greedy servers, shows that the early exit
-fires, and times each kernel.  One line per phase gives the phase's
+It builds the kernels (K1 beam, K2 greedy, K3 the training recurrence)
+with one nvcc call, holds each kernel and each whole decode against their
+plain PyTorch versions and against the plain oracles that run every step
+(small shapes, then the full width of the hypernet attention-GRU model),
+serves batches through the port's beam and greedy servers, shows that the
+early exit fires, runs hypernet train steps through K3 and through the
+per-step loop, and times each kernel and each train step.  One line per phase gives the phase's
 seconds.  The line before the last is a JSON ``kernels`` record; the last
 line is ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or
 a failed build raises, and the script exits non-zero without that last
@@ -40,10 +41,19 @@ from captionax_torch.decode.serving import (
     unpack_beam_result,
 )
 from captionax_torch.models.decoder import attention_gru_init
-from captionax_torch.models.hypernet import hypernet_init, theta_param_count
+from captionax_torch.models.hypernet import hypernet_apply, hypernet_init, theta_param_count
 from captionax_torch.ops import _cuda
 from captionax_torch.ops import decode_kernel as dk
+from captionax_torch.ops import train_kernel as tk
+from captionax_torch.train import steps as tsteps
+from captionax_torch.train.state import (
+    create_train_state,
+    make_optimizer,
+    tree_leaves,
+    tree_unflatten,
+)
 from captionax_torch.train.steps import (
+    make_hypernet_steps,
     style_table,
     synthesize_theta,
     synthesize_theta_batched,
@@ -985,6 +995,365 @@ def served_rates(model, theta, batches):
                 + f" ms per batch of {B}; {steps}) [{CARD}]")
 
 
+# ------------------------------------------------------------------ 12-15: training
+T_CAP = 25            # caption length of a training batch (benchmarks/trainstep_roofline.py)
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-3
+STYLE = 4             # 'factual'
+# (B, T, R, F, E, H): an odd batch (a partial row tile), one row, 49 regions
+SMALL_TRAIN = ((5, 7, 9, 24, 24, 24), (1, 4, 5, 16, 16, 16), (13, 6, 49, 40, 24, 32))
+# the CPU tests' tolerances (tests/test_torch_train_kernel.py): the forward
+# rtol = atol = 1e-5; a gradient rtol 2e-4, atol max(2e-5 * its scale, 1e-6)
+FWD_RTOL = FWD_ATOL = 1e-5
+GRAD_RTOL, GRAD_ATOL_SCALE, GRAD_ATOL_FLOOR = 2e-4, 2e-5, 1e-6
+# bf16 kernel vs the bf16 plain version, relative to the largest entry: sums
+# in other orders flip bf16 roundings, which 25 steps carry along
+BF16_REL_BOUND = 5e-2
+# f32 losses of the K3 route against the per-step loop: after step 1 the
+# parameters differ by Adam's normalisation of float-noise gradients
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_SOURCE = "captionax_torch/ops/csrc/train_recurrence.cu"
+K3_FWD_TPU = "captionax/ops/train_kernel.py:76"
+K3_BWD_TPU = "captionax/ops/train_kernel.py:101"
+GRAD_NAMES = ("feats", "att1", "h0", "embeds", "ua_w", "ua_b", "va", "wih_t", "whh_t",
+              "bih", "bhh")
+ROW_NAMES = ("x", "dgi", "hp", "dghn", "datt2")
+
+
+def close_or_fail(got, ref, what, rtol, atol) -> float:
+    """Max abs error of got vs ref; fail where |got - ref| > atol + rtol |ref|."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    require(not bool(bad.any()), f"{what}: {int(bad.sum())} entries off, max err "
+            f"{err.max().item():.3e} (atol {atol:.1e}, rtol {rtol:.1e})")
+    return err.max().item()
+
+
+def grad_close(got, ref, what) -> float:
+    scale = max(ref.float().abs().max().item(), 1e-3)
+    return close_or_fail(got, ref, what, GRAD_RTOL, max(GRAD_ATOL_SCALE * scale, GRAD_ATOL_FLOOR))
+
+
+def random_core(b, t, r, f, e, h, cdt, seed):
+    """The eleven inputs of the recurrence at a small shape, on the card."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    rnd = lambda *shape, sc=1.0: torch.randn(shape, generator=g, device=DEVICE) * sc
+    n_in = e + f
+    return (rnd(b, r, f).to(cdt), rnd(b, r, h).to(cdt), rnd(b, h, sc=0.5), rnd(b, t, e),
+            rnd(h, h, sc=h ** -0.5).to(cdt), rnd(h, sc=0.1), rnd(h, sc=h ** -0.5),
+            rnd(n_in, 3 * h, sc=n_in ** -0.5).to(cdt), rnd(h, 3 * h, sc=h ** -0.5).to(cdt),
+            rnd(3 * h, sc=0.1), rnd(3 * h, sc=0.1))
+
+
+def check_k3(args, g, what: str, enforce: bool) -> dict:
+    """Every K3 kernel against its plain version on the same inputs: the
+    forward's hs; pass 1's per-row gradients, pass-2 rows and d(v_a); pass
+    2a on pass 1's rows; pass 2b on pass 2a's partials; and the eleven
+    gradients of the whole backward.  f32 (enforce) is held to the CPU
+    tests' tolerances; otherwise each relative error is printed and held to
+    BF16_REL_BOUND.  -> max abs error per kernel."""
+    rel = {}
+
+    def cmp(got, ref, name, grad=True):
+        if enforce:
+            return (grad_close(got, ref, f"{what} {name}") if grad else
+                    close_or_fail(got, ref, f"{what} {name}", FWD_RTOL, FWD_ATOL))
+        err = (got.float() - ref.float()).abs().max().item()
+        rel[name] = err / max(ref.float().abs().max().item(), 1e-12)
+        require(rel[name] <= BF16_REL_BOUND, f"{what} {name}: relative error {rel[name]:.3e}")
+        return err
+
+    hp = tk.fused_fwd_plain(*args)
+    errs = {"train_fwd": cmp(tk.fused_fwd(*args), hp, "hs", grad=False)}
+    pp = tk.bwd_recurrence_plain(*args, hp, g)
+    pk = tk.bwd_recurrence(*args, hp, g)
+    e1 = [cmp(pk[i], pp[i], n) for i, n in enumerate(("d_feats", "d_att1", "d_h0", "d_emb"))]
+    e1 += [cmp(pk[4][k], pp[4][k], f"row {k}") for k in ROW_NAMES]
+    e1.append(cmp(pk[5].sum(dim=0), pp[5][0], "d_va (sum of the blocks)"))
+    errs["train_bwd_recurrence"] = max(e1)
+    part_k = tk.wgrad_partial(pk[4])
+    part_p = tk.wgrad_partial_plain(pk[4])
+    errs["train_wgrad_partial"] = cmp(part_k, part_p, "weight-gradient partials")
+    out_k, dva_k = tk.wgrad_reduce(part_k, pk[5])
+    out_p, dva_p = tk.wgrad_reduce_plain(part_k, pk[5])
+    errs["train_wgrad_reduce"] = max(cmp(out_k, out_p, "reduced weight gradients"),
+                                     cmp(dva_k, dva_p, "reduced d_va"))
+    gk = tk.fused_bwd(*args, hp, g)
+    gp = tk.fused_bwd_plain(*args, hp, g)
+    whole = max(cmp(a, b, f"d_{n}") for n, a, b in zip(GRAD_NAMES, gk, gp))
+    if not enforce:
+        say(f"  {what}: relative error per output (bf16 bound {BF16_REL_BOUND}): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    errs["whole backward"] = whole
+    return errs
+
+
+def train_small_exactness():
+    """K3 at small shapes in f32, with an odd batch (a partial row tile)
+    and a batch of one row; and d(v_a bias) = 0 through the autograd
+    Function on the card."""
+    for i, shape in enumerate(SMALL_TRAIN):
+        b, t = shape[:2]
+        args = random_core(*shape, torch.float32, 40 + i)
+        g = torch.randn((b, t, shape[-1]), generator=torch.Generator(device=DEVICE)
+                        .manual_seed(50 + i), device=DEVICE)
+        errs = check_k3(args, g, f"small {shape}", True)
+        say(f"  small (B, T, R, F, E, H) = {shape}, f32: max abs err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    s = SMALL
+    p = attention_gru_init(gen(3), s["NF"], s["F"], s["E"], s["H"], s["V"], device=DEVICE)
+    raw = torch.randn((5, s["R"], s["NF"]), generator=torch.Generator(device=DEVICE)
+                      .manual_seed(4), device=DEVICE)
+    caps = torch.randint(1, s["V"], (5, 7), generator=torch.Generator(device=DEVICE)
+                         .manual_seed(5), device=DEVICE)
+    reset_k3()
+    loss, grads = tsteps._value_and_grad(
+        lambda q: tk.fused_teacher_forced_hidden(q, raw, caps)[0].square().sum(), p)
+    require(tk.BWD.launches == 1, "the backward did not run through K3")
+    require(not bool(grads["attention"]["v_a"]["b"].any()), "d(v_a bias) is not 0")
+    require(bool(grads["attention"]["U_a"]["b"].any()), "d(U_a bias) is 0")
+    say("  d(v_a bias) through the autograd Function: exactly 0")
+
+
+def train_batch(batches):
+    caps = torch.randint(1, V, (B, T_CAP), generator=torch.Generator(device=DEVICE)
+                         .manual_seed(7), device=DEVICE)
+    return {"features": batches[0], "captions": caps,
+            "style_id": torch.tensor(STYLE, device=DEVICE)}
+
+
+def train_core(model, batch, cdt):
+    """The recurrence's inputs at full width, as the train step builds them
+    (bf16 copies of the parameters under bf16 compute)."""
+    params = {"decoder": model["decoder"], "hn": model["hn"]}
+    if cdt == torch.bfloat16:
+        params = tsteps._bf16(params)
+    with torch.no_grad():
+        theta = synthesize_theta(params, STYLE)
+        return tk.core_inputs(params["decoder"], batch["features"].to(cdt), batch["captions"],
+                              theta)
+
+
+def train_full_width(model, batch):
+    """K3 against its plain versions at full width, B=1024, T=25: f32 held
+    to the CPU tests' tolerances, bf16 printed and bounded."""
+    out = {}
+    for cdt, enforce in ((torch.float32, True), (torch.bfloat16, False)):
+        args = train_core(model, batch, cdt)
+        g = torch.randn((B, T_CAP, H), generator=torch.Generator(device=DEVICE).manual_seed(8),
+                        device=DEVICE) * 1e-3
+        name = "f32" if cdt == torch.float32 else "bf16"
+        out[name] = check_k3(args, g, f"full width {name}", enforce)
+        say(f"  full width B={B}, T={T_CAP}, {name} compute: max abs err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in out[name].items()) + f" [{CARD}]")
+    return out
+
+
+def step_breakdown(train, state, batch, what: str) -> None:
+    """Where one train step's card time goes: a torch.profiler trace of one
+    step, the kernels' device time summed by name (the top ten) and the
+    card-busy share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train(state, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        say(f"  {what}: card time not measured (no device time traced)")
+        return
+    k3 = sum(r[0] for r in rows if "train_" in r[2])
+    gemm = sum(r[0] for r in rows if "gemm" in r[2].lower() and "train_" not in r[2])
+    say(f"  {what}: card busy {busy:.2f} ms of a {wall:.2f} ms traced step "
+        f"({busy / wall:.1%}): K3 kernels {k3:.2f} ms, library matrix products "
+        f"{gemm:.2f} ms, other kernels (elementwise, reductions, copies) "
+        f"{busy - k3 - gemm:.2f} ms; top kernels by device time [{CARD}]:")
+    for ms, n, key in rows[:10]:
+        say(f"    {ms:9.3f} ms  {n:5d} x  {key[:110]}")
+
+
+def step_phases(state, batch, tx, bf16: bool, fused: bool, what: str) -> None:
+    """Host clock, with a sync after each, of one hypernet train step's
+    parts: the loss (hypernet, recurrence and chunked CE forward), its
+    backward, and the optimizer update."""
+    batch = tsteps._on_params(state.params, batch)
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(state.params)]
+    params = tree_unflatten(state.params, leaves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    theta = hypernet_apply(params["hn"], tsteps.style_token_embed(params, batch))
+    loss = tsteps._tf_ce(params["decoder"], batch, 0, gru_params=theta, bf16=bf16, fused=fused)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = [torch.zeros_like(x) if gx is None else gx for x, gx in zip(leaves, grads)]
+    state.apply_gradients(tree_unflatten(state.params, grads), tx)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    say(f"  {what}: loss forward {(t1 - t0) * 1e3:.2f} ms, backward {(t2 - t1) * 1e3:.2f} "
+        f"ms, optimizer {(t3 - t2) * 1e3:.2f} ms (host clock, a sync after each) [{CARD}]")
+
+
+def reset_k3():
+    for op in tk.KERNELS:
+        op.launches = 0
+
+
+def train_steps(model, batch):
+    """Five hypernet train steps at full width on one batch, style 4, from
+    the same init, through K3 (fused_scan=True, the main training path) and
+    through the per-step loop, in f32 and bf16 compute over f32 masters;
+    then eval_step.  The K3 counts are set to 0 just before the K3 runs and
+    read just after."""
+    init = {"decoder": model["decoder"], "hn": model["hn"]}
+    tx = make_optimizer(TRAIN_LR)
+    losses, times, launches, states = {}, {}, {}, {}
+    for bf16 in (False, True):
+        for fused in (True, False):
+            key = ("bf16" if bf16 else "f32", "k3" if fused else "loop")
+            train, _ = make_hypernet_steps(tx, bf16=bf16, fused_scan=fused)
+            state = create_train_state(init, tx)
+            reset_k3()
+            ls, ts = [], []
+            for _ in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = train(state, batch)
+                ls.append(float(m["train_loss"]))  # a host read: the step has ended
+                ts.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            launches[key] = {op.name: op.launches for op in tk.KERNELS}
+            losses[key], times[key], states[key] = ls, ts, state
+            ms = float(np.median(ts[1:])) * 1e3
+            say(f"  {key[0]} compute, {'K3' if fused else 'per-step loop'}: losses "
+                + ", ".join(f"{x:.6f}" for x in ls) + f"; {ms:.2f} ms per step (median of "
+                f"steps 2-{TRAIN_STEPS}), {B / ms * 1e3:.1f} images/s; first step "
+                f"{ts[0] * 1e3:.1f} ms; K3 launches {launches[key]} [{CARD}]")
+    for k3 in (("f32", "k3"), ("bf16", "k3")):
+        for name, n in launches[k3].items():
+            require(n > 0, f"{name} was not launched on the {k3[0]} K3 training path")
+    for loop in (("f32", "loop"), ("bf16", "loop")):
+        require(not any(launches[loop].values()), "the per-step loop launched a K3 kernel")
+    f32_k3, f32_loop = np.array(losses[("f32", "k3")]), np.array(losses[("f32", "loop")])
+    rel = np.abs(f32_k3 - f32_loop) / np.abs(f32_loop)
+    say(f"  f32 losses, K3 vs the per-step loop: relative difference per step "
+        + ", ".join(f"{x:.2e}" for x in rel) + f" (bound {TRAIN_LOSS_RTOL})")
+    require(bool((rel <= TRAIN_LOSS_RTOL).all()), "f32 losses of the two routes differ")
+    for key in (("bf16", "k3"), ("bf16", "loop")):
+        ls = losses[key]
+        require(all(np.isfinite(ls)), f"{key}: a loss is not finite")
+        require(ls[-1] < ls[0], f"{key}: the loss did not fall over {TRAIN_STEPS} steps")
+    for key, state in states.items():
+        require(all(x.dtype == torch.float32 for x in tree_leaves(state.params)),
+                f"{key}: a master weight is not f32")
+        gru = state.params["decoder"]["gru"]
+        require(all(torch.equal(gru[k], init["decoder"]["gru"][k]) for k in gru),
+                f"{key}: the decoder's own GRU tensors moved")
+    for key in states:
+        step_phases(states[key], batch, tx, key[0] == "bf16", key[1] == "k3",
+                    f"one {key[0]} {key[1]} train step")
+    for key in (("f32", "k3"), ("f32", "loop")):
+        try:
+            step_breakdown(make_hypernet_steps(tx, fused_scan=key[1] == "k3")[0], states[key],
+                           batch, f"one {key[0]} {key[1]} train step")
+        except Exception as exc:  # a measurement, not a check
+            say(f"  {key}: breakdown not measured ({type(exc).__name__}: {exc})")
+    _, evaluate = make_hypernet_steps(tx)
+    ev = evaluate(states[("f32", "k3")].params, batch)
+    vt, vf = float(ev["val_loss_tf"]), float(ev["val_loss"])
+    require(np.isfinite(vt) and np.isfinite(vf), "eval_step losses are not finite")
+    require(tuple(ev["logits_tf"].shape) == (B, T_CAP, V), "eval_step logits shape")
+    say(f"  eval_step after the f32 K3 steps: val_loss_tf {vt:.6f}, val_loss (free "
+        f"running) {vf:.6f}")
+    return launches
+
+
+def k3_cost(args, hs):
+    """Bytes and operations of the forward and of pass 1 at these inputs."""
+    feats, att1 = args[0], args[1]
+    Bn, R_, F_ = feats.shape
+    T_ = args[3].shape[1]
+    In, H_ = args[7].shape[0], args[2].shape[1]
+    G = 3 * H_
+    ins = nbytes(*args)
+    fwd_flops = 2 * Bn * T_ * (H_ * H_ + R_ * H_ + R_ * F_ + In * G + H_ * G)
+    rows = T_ * Bn * (In + G + 3 * H_) * 4
+    bwd_flops = fwd_flops + 2 * Bn * T_ * (In * G + H_ * G + 2 * R_ * F_ + 2 * R_ * H_ + H_ * H_)
+    bwd_bytes = (ins + 2 * nbytes(hs) + nbytes(feats, att1) + Bn * H_ * 4
+                 + Bn * T_ * args[3].shape[2] * 4 + rows)
+    return (ins + nbytes(hs), fwd_flops), (bwd_bytes, bwd_flops)
+
+
+def train_times(model, batch, launches, errs):
+    """Per launch (CUDA events), at full width in f32 (the default training
+    config) and bf16: each K3 kernel, its plain version and its library
+    yardstick, beside its bound.  -> the kernels' entries of the JSON record (f32)."""
+    out = []
+    steps = TRAIN_STEPS * 2  # the K3 route ran f32 and bf16, five steps each
+    main = {op.name: launches[("f32", "k3")][op.name] + launches[("bf16", "k3")][op.name]
+            for op in tk.KERNELS}
+    for cdt in (torch.float32, torch.bfloat16):
+        name = "f32" if cdt == torch.float32 else "bf16"
+        args = train_core(model, batch, cdt)
+        hs = tk.fused_fwd(*args)
+        g = torch.randn((B, T_CAP, H), generator=torch.Generator(device=DEVICE).manual_seed(8),
+                        device=DEVICE) * 1e-3
+        d_feats, d_att1, d_h0, d_emb, rows, dva_part = tk.bwd_recurrence(*args, hs, g)
+        partial = tk.wgrad_partial(rows)
+        (fb, ff), (bb, bf) = k3_cost(args, hs)
+        ones = lambda a: torch.cat([a, torch.ones_like(a[:, :1])], dim=1)
+        x1, hp1 = ones(rows["x"]), ones(rows["hp"])
+        dgh = torch.cat([rows["dgi"][:, :2 * H], rows["dghn"]], dim=1)
+        lib_wgrad = lambda: (torch.matmul(x1.t(), rows["dgi"]), torch.matmul(hp1.t(), dgh),
+                             torch.matmul(hp1.t(), rows["datt2"]))
+        lib_reduce = lambda: (torch.sum(partial, dim=0), torch.sum(dva_part, dim=0))
+        total = partial.shape[1]
+        specs = [
+            ("train_fwd", tk.FWD, K3_FWD_TPU, lambda: tk.fused_fwd(*args),
+             lambda: tk.fused_fwd_plain(*args), None, fb, ff, cdt),
+            ("train_bwd_recurrence", tk.BWD, K3_BWD_TPU, lambda: tk.bwd_recurrence(*args, hs, g),
+             lambda: tk.bwd_recurrence_plain(*args, hs, g), None, bb, bf, cdt),
+            ("train_wgrad_partial", tk.WGRAD, K3_BWD_TPU, lambda: tk.wgrad_partial(rows),
+             lambda: tk.wgrad_partial_plain(rows), lib_wgrad,
+             nbytes(*rows.values(), partial),
+             2 * T_CAP * B * total, torch.float32),
+            ("train_wgrad_reduce", tk.WGRAD_REDUCE, K3_BWD_TPU,
+             lambda: tk.wgrad_reduce(partial, dva_part),
+             lambda: tk.wgrad_reduce_plain(partial, dva_part), lib_reduce,
+             nbytes(partial, dva_part) + (total + H) * 4, partial.numel() + dva_part.numel(),
+             torch.float32),
+        ]
+        for kname, op, tpu, fn, plain, lib, n_bytes, flops, peak_dt in specs:
+            iters = 5 if kname in ("train_fwd", "train_bwd_recurrence") else 20
+            ms = device_ms(fn, iters)
+            plain_ms = wall_ms(plain, 2)
+            lib_ms = device_ms(lib, 20) if lib is not None else None
+            bms, by = bound_ms(n_bytes, flops, peak_dt)
+            say(f"  {kname} ({name} compute): {ms:.4f} ms/launch, "
+                f"{main[op.name] // steps} launch per train step, bound {bms:.4f} ms by "
+                f"{by}, plain {plain_ms:.4f} ms, library "
+                f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}, max abs err "
+                f"{errs[name][kname]:.3e} (B={B}, T={T_CAP}) [{CARD}]")
+            if cdt == torch.float32:
+                out.append({
+                    "name": kname, "route": "cuda", "source": TRAIN_SOURCE, "replaces": tpu,
+                    "launches": main[op.name], "launches_per_step": main[op.name] // steps,
+                    "max_abs_err": errs[name][kname], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                })
+    return out
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -1027,6 +1396,15 @@ def main() -> int:
         skipped_step_cost(model, theta, batches)
         decode_host_time(model, theta, batches)
         served_rates(model, theta, batches)
+    with Phase("12 small-shape exactness, K3"):
+        train_small_exactness()
+    batch = train_batch(batches)
+    with Phase("13 full width, K3 against its plain versions"):
+        errs = train_full_width(model, batch)
+    with Phase("14 hypernet train steps, K3 and the per-step loop"):
+        launches = train_steps(model, batch)
+    with Phase("15 times, training"):
+        kernels += train_times(model, batch, launches, errs)
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))

@@ -10,13 +10,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "captionax_torch"
 SMOKE = ROOT / "chip_smoke.py"
-FORBIDDEN = ("jax", "jaxlib", "captionax")
+FORBIDDEN = ("jax", "jaxlib", "optax", "captionax")
 
 
 def _sources():
@@ -48,7 +49,7 @@ def test_imports_with_jax_and_captionax_blocked(tmp_path):
     made unimportable, and importing builds no kernel."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'jaxlib', 'captionax'):\n"
+        "for name in ('jax', 'jaxlib', 'optax', 'captionax'):\n"
         "    sys.modules[name] = None\n"
         "import captionax_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(captionax_torch.__path__, 'captionax_torch.')]\n"
@@ -77,21 +78,54 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
-    from captionax_torch.decode.serving import make_beam_server
+def _tiny_decoder():
     from captionax_torch.models.decoder import attention_gru_init
+
+    return attention_gru_init(torch.Generator().manual_seed(0), 8, 4, 4, 4, 10, device="cpu")
+
+
+def _entry_attention_gru_init():
+    from captionax_torch.models.decoder import attention_gru_init
+
+    attention_gru_init(torch.Generator().manual_seed(0), 8, 4, 4, 4, 10)
+
+
+def _entry_fused_beam_search():
     from captionax_torch.ops.decode_kernel import fused_beam_search
 
+    fused_beam_search(_tiny_decoder(), torch.zeros((2, 3, 8)), max_steps=2)
+
+
+def _entry_make_beam_server():
+    from captionax_torch.decode.serving import make_beam_server
+
+    make_beam_server(_tiny_decoder(), max_steps=2)
+
+
+def _entry_create_train_state():
+    from captionax_torch.train.state import create_train_state, make_optimizer
+
+    create_train_state(_tiny_decoder(), make_optimizer(1e-3))
+
+
+def _entry_from_optax_state():
+    from types import SimpleNamespace as NS
+
+    from captionax_torch.interop import from_optax_state
+
+    adam = NS(count=0, mu={"w": np.zeros(2, np.float32)}, nu={"w": np.zeros(2, np.float32)})
+    finite = NS(notfinite_count=0, total_notfinite=0, inner_state=((), (adam, ())))
+    from_optax_state(NS(hyperparams={"learning_rate": 1e-3}, inner_state=finite))
+
+
+ENTRY_POINTS = {name[7:]: fn for name, fn in globals().items() if name.startswith("_entry_")}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    g = torch.Generator().manual_seed(0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        attention_gru_init(g, 8, 4, 4, 4, 10)
-    params = attention_gru_init(g, 8, 4, 4, 4, 10, device="cpu")
-    raw = torch.zeros((2, 3, 8))
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        fused_beam_search(params, raw, max_steps=2)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        make_beam_server(params, max_steps=2)
+        ENTRY_POINTS[entry]()
 
 
 def test_greedy_entry_points_default_to_the_card(monkeypatch):
