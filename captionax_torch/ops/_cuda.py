@@ -54,7 +54,10 @@ SIGNATURES = {
     "train_wgrad_partial": [_P] * 6 + [_I] * 4 + [_P],
     "train_wgrad_reduce": [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_P],
     "conv_stage_f32": [_P] * 16 + [_I] * 7 + [_P, _P],
-    "conv_stage_bf16": [_P] * 16 + [_I] * 7 + [_P, _P],
+    "conv_stage_bf16": [_P] * 16 + [_I] * 7 + [_P, _P] + [_I] * 2,
+    # sizes, not kernels: the dynamic shared memory of a kernel, in bytes
+    "conv_stage_bf16_smem": [_I],
+    "train_wgrad_smem": [],
 }
 
 

@@ -15,8 +15,20 @@ projection) that pass activations through device memory
 - ``conv3x3_bn``  the 3x3 conv with pad 1 as an implicit GEMM (K = 9M),
   zero borders gathered by the kernel.
 
-One C call per chain issues all of its launches.  Each block computes, from
-x in the compute dtype (bf16, or f32 with ``f32=True``):
+One C call per chain issues all of its launches.  The bf16 kernels run on
+Hopper's ``wgmma`` (bf16 in, f32 accumulators in registers) over 128-row
+output tiles whose width :func:`tile_width` picks per launch (64, 128 or
+256), fed by a four-stage ring of 16-byte ``cp.async`` copies in the
+128-byte swizzled layout that the ``wgmma`` descriptors name; the 3x3
+conv's im2col is gathered by the copies, zeros at the halo, and W is read
+in its packed [K, N] layout as a transposed operand.  The epilogue runs
+from the accumulator registers, each lane writing 16 bytes.  At B=64 the
+launches are bound by the traffic from L2 into shared memory, which a
+tiled product multiplies (W is re-read once per row tile).  The f32
+kernels run in full f32 on the CUDA cores, 64 x 64 tiles.
+
+Each block computes, from x in the compute dtype (bf16, or f32 with
+``f32=True``):
 
     y1  = round(relu(x  @ W1 * s1 + b1))
     y2  = round(relu(conv3x3(y1) @ W2 * s2 + b2))
@@ -51,6 +63,25 @@ KERNELS = (CONV1X1, CONV3X3)
 # launches of both kernels by the output width C of the chain that issued
 # them (256, 512, 1024, 2048 for the four ResNet stages); reset with the counts
 LAUNCHES_BY_WIDTH: Counter = Counter()
+SMS = 132              # streaming multiprocessors of an H100 SXM
+TILE_ROWS = 128        # output rows of a bf16 block (csrc ``wg::kBM``)
+TILE_WIDTHS = (256, 128, 64)  # the bf16 tile widths csrc instantiates
+
+
+def tile_width(rows: int, n: int) -> int:
+    """The width of the bf16 kernel's 128-row output tile for a product of
+    ``rows`` x ``n`` outputs (n a multiple of 64).  A launch takes about
+    ceil(tiles / SMS) rounds of tiles, each costing about its width plus
+    the 128 rows whose A it streams (on the card, chip_smoke.py phase 19
+    times every width pair: at B=64, 98 blocks of 256 beat 196 of 128 for
+    stage 3's 3x3 conv, and 100 of 128 beat 200 of 64 for stage 4's): the
+    width of the fewest rounds x cost, the widest on a tie."""
+    row_tiles = -(-rows // TILE_ROWS)
+
+    def cost(bn: int) -> int:
+        return -(-row_tiles * (n // bn) // SMS) * (bn + TILE_ROWS)
+
+    return min((bn for bn in TILE_WIDTHS if n % bn == 0), key=cost)
 
 
 def pack_stage(blocks: List[Dict], dtype: Optional[torch.dtype] = None) -> Dict:
@@ -173,13 +204,14 @@ def fused_stage(x: torch.Tensor, packed: Dict, *, f32: bool = False) -> torch.Te
     idt = torch.empty_like(out) if has_down else None
     counts = (ctypes.c_int * 2)()
     opt = lambda t: 0 if t is None else _ptr(t)  # noqa: E731
+    widths = () if f32 else (tile_width(rows, M), tile_width(rows, C))
     with torch.cuda.device(dev):
         call(f"conv_stage_{_SUFFIX[cdt]}",
              _ptr(ops["x"]), _ptr(ops["w1f"]), _ptr(ops["sb1f"]), opt(ops.get("wd")),
              opt(ops.get("sbd")), _ptr(ops["w1r"]), _ptr(ops["sb1r"]), _ptr(ops["w2"]),
              _ptr(ops["sb2"]), _ptr(ops["w3"]), _ptr(ops["sb3"]), _ptr(out), opt(tmp),
              _ptr(y1), _ptr(y2), opt(idt), B, S, Cin, C, M, n, int(has_down),
-             ctypes.addressof(counts), torch.cuda.current_stream(dev).cuda_stream)
+             ctypes.addressof(counts), torch.cuda.current_stream(dev).cuda_stream, *widths)
     CONV1X1.launches += counts[0]
     CONV3X3.launches += counts[1]
     LAUNCHES_BY_WIDTH[C] += counts[0] + counts[1]

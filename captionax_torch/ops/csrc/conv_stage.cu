@@ -27,15 +27,20 @@
 //
 // What bounds it on this card.  On ResNet-152 at 224^2 the four chains of a
 // batch do 20.6 GFLOP per image (1.32 TFLOP at B=64), while their inputs,
-// weights and outputs come to 0.41 GB in bf16 (0.12 ms at 3.35 TB/s), so
-// they are bound by operations: 1.33 ms at the bf16 tensor-core peak
-// (989 TFLOP/s), 19.6 ms at the f32 CUDA-core peak (67 TFLOP/s).  The bf16
-// instance runs its products on the tensor cores through WMMA (16x16x16
-// bf16 fragments, f32 accumulators); the f32 instance stays in full f32 on
-// the CUDA cores (no TF32).  Both use 64 x 64 output tiles fed through
-// shared memory; the bf16 one double-buffers its tiles and prefetches the
-// next depth step into registers while the tensor cores work.  wgmma, TMA
-// and a persistent, pipelined schedule are a later step.
+// weights and outputs come to 0.41 GB in bf16 (0.12 ms at 3.35 TB/s), so by
+// that count they are bound by operations: 1.33 ms at the bf16 tensor-core
+// peak (989 TFLOP/s), 19.6 ms at the f32 CUDA-core peak (67 TFLOP/s).  The
+// f32 instance stays in full f32 on the CUDA cores (no TF32), 64 x 64
+// tiles.  The bf16 instance runs on wgmma (below); what bounds it in
+// practice is the traffic from L2 into shared memory, which a tiled GEMM
+// multiplies: every block reads its rows of A and its columns of W, so a
+// 128 x BN tile re-reads W once per row tile and A once per column tile
+// (at B=64 stage 3's tiles read and write about 14 GB per call, counted
+// from the shapes, against 0.13 GB of inputs, weights and outputs).  Sharing W between the two CTAs of a
+// cluster by TMA multicast halves W's share; synchronised by a cluster
+// barrier per depth step it ran slower than the ring below, and a
+// warp-specialised pipeline that would not need that barrier is left for
+// a later change.
 //
 // Host cost.  A batch runs 47 stride-1 blocks, ~142 launches; one C entry per
 // chain (conv_stage_f32 / conv_stage_bf16) issues all of a chain's launches,
@@ -44,7 +49,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include <cstdint>
 
 namespace conv {
 
@@ -155,41 +161,173 @@ conv_gemm_f32(const float* __restrict__ A, const float* __restrict__ W,
 }
 
 // ---------------------------------------------------------------- bf16
-// 64 x 64 tile, 128 threads = 4 warps as 2 x 2, each warp 32 x 32 outputs as
-// 2 x 2 WMMA fragments of 16 x 16 (bf16 inputs, f32 accumulators), depth
-// step 32.  Tiles are double-buffered in shared memory, and the next step's
-// 16-byte loads are held in registers while this step's products run.
-namespace wmma = nvcuda::wmma;
-constexpr int kBK16 = 32;
-constexpr int kAStride = kBK16 + 8;   // bf16 per row of the A tile (80 bytes)
-constexpr int kBStride = kTile + 8;   // bf16 per row of the W tile (144 bytes)
-constexpr int kCStride = kTile + 4;   // floats per row of the accumulator tile
-constexpr int kABytes = kTile * kAStride * 2;
-constexpr int kBBytes = kBK16 * kBStride * 2;
-constexpr int kStageBytes = kABytes + kBBytes;
-constexpr int kSmemBytes = (2 * kStageBytes > kTile * kCStride * 4) ? 2 * kStageBytes
-                                                                     : kTile * kCStride * 4;
+// wgmma (sm_90a): a 128 x BN output tile (BN = 64, 128 or 256, chosen per
+// launch by conv_kernel.tile_width) on two warpgroups of 128 threads, each
+// one m64nBNk16 product per 16 depths into f32 accumulators in registers.
+// The operands come through a ring of kStages shared-memory stages of 64
+// depths, filled by 16-byte cp.async copies from all 256 threads (zeros at
+// the ragged row edge, past K, and at the 3x3 conv's halo).  Two stages are
+// in flight while the tensor cores read a third and the previous step's
+// products drain (wgmma.wait_group 1), with one __syncthreads per step.
+//   A (rows x 64 depths, K-major): row r's 128 bytes at r * 128, its 16-byte
+//     chunk c stored at chunk c ^ (r & 7) -- the 128-byte swizzle that the
+//     wgmma descriptor names; 8-row groups 1024 bytes apart.
+//   W (64 depths x BN, N-major, read by wgmma as a transposed B): W is
+//     [K, N] with N contiguous, so a stage holds BN / 64 column blocks of
+//     64 x 64, each 8 KB, depth row kr's 16-byte chunk c at c ^ (kr & 7).
+//     The weights are used as packed, with no copy in another layout.
+// The epilogue runs from the accumulator registers (see below).
+namespace wg {
 
-template <int MODE>
-__global__ void __launch_bounds__(128)
+constexpr int kBM = 128;                 // output rows per block (two warpgroups)
+constexpr int kBK = 64;                  // depths per stage: one 128-byte swizzle row
+constexpr int kStages = 4;
+constexpr int kThreads = 256;
+constexpr int kABytes = kBM * kBK * 2;   // 16 KB
+constexpr int kBlockBytes = kBK * 128;   // one 64 x 64 column block of W, 8 KB
+
+__host__ __device__ constexpr int stage_bytes(int bn) { return kABytes + bn * kBK * 2; }
+// the ring, and 1 KB to align it (the swizzle repeats every 1024 bytes)
+__host__ __device__ constexpr int smem_bytes(int bn) { return kStages * stage_bytes(bn) + 1024; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (nothing is read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a shared-memory matrix descriptor with the 128-byte swizzle
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads across a wgmma wait
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64 x N] += A[64 x 16] (K-major) * B[16 x N] (N-major), bf16 in, f32 accumulate
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void mma(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 64) wgmma_m64n64(d, da, db);
+  else if constexpr (BN == 128) wgmma_m64n128(d, da, db);
+  else wgmma_m64n256(d, da, db);
+}
+
+// MODE 0: A is [rows, K] row-major (a 1x1 conv; K a multiple of 8).
+// MODE 1: A is the implicit im2col of y1 [B, S, S, Cm], K = 9 * Cm (Cm a
+// multiple of 64, so a stage's 64 depths lie in one tap).
+template <int MODE, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
 conv_gemm_bf16(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W,
                const float* __restrict__ sb, const __nv_bfloat16* __restrict__ res,
                __nv_bfloat16* __restrict__ out, int rows, int K, int N, int S, int Cm, int relu) {
-  __shared__ __align__(128) unsigned char smem[kSmemBytes];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // the warp's 32 x 32 quadrant
-  const int row0 = blockIdx.x * kTile, col0 = blockIdx.y * kTile;
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int kStage = stage_bytes(BN);
+  constexpr int kDist = kStages - 2;  // steps between a stage's copy and its products
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kBM, col0 = blockIdx.y * BN;
+  const int nk = (K + kBK - 1) / kBK;
 
-  // loads of one depth step: A is 64 rows x 32 depths, W is 32 x 64, each
-  // 256 pieces of 8 bf16 (16 bytes); this thread loads pieces tid, tid + 128
-  int a_row[2], a_col[2], img[2], py[2], px[2];
-  bool a_ok[2];
+  // this thread's A copies: 16-byte chunk ac of tile rows ar + 32 p
+  const int ac = tid & 7, ar = tid >> 3;
+  bool a_ok[4];
+  int img[4], py[4], px[4];
 #pragma unroll
-  for (int p = 0; p < 2; ++p) {
-    const int idx = tid + p * 128;
-    a_row[p] = idx >> 2;
-    a_col[p] = (idx & 3) * 8;
-    const int r = row0 + a_row[p];
+  for (int p = 0; p < 4; ++p) {
+    const int r = row0 + ar + 32 * p;
     a_ok[p] = r < rows;
     img[p] = py[p] = px[p] = 0;
     if (MODE == 1 && a_ok[p]) {
@@ -199,104 +337,209 @@ conv_gemm_bf16(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restr
       px[p] = rem - py[p] * S;
     }
   }
-  uint4 ra[2], rb[2];
-  auto load = [&](int k0) {
+  const uint32_t a_dst = ar * 128 + ((ac ^ (ar & 7)) << 4);  // + p * 32 rows = p * 4 KB
+
+  auto load = [&](int kt, int stage) {
+    const uint32_t sA = base + stage * kStage, sB = sA + kABytes;
+    const int k0 = kt * kBK;
+    if (MODE == 0) {
+      const int k = k0 + ac * 8;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      ra[p] = make_uint4(0u, 0u, 0u, 0u);
-      if (a_ok[p]) {
-        if (MODE == 0) {
-          ra[p] = *reinterpret_cast<const uint4*>(
-              A + static_cast<long long>(row0 + a_row[p]) * K + k0 + a_col[p]);
-        } else {
-          const int tap = k0 / Cm;
-          const long long off = tap_offset(img[p], py[p], px[p], tap, S, Cm);
-          if (off >= 0)
-            ra[p] = *reinterpret_cast<const uint4*>(A + off + (k0 - tap * Cm) + a_col[p]);
-        }
+      for (int p = 0; p < 4; ++p) {
+        const bool ok = a_ok[p] && k < K;
+        const __nv_bfloat16* src =
+            ok ? A + static_cast<long long>(row0 + ar + 32 * p) * K + k : A;
+        cp_async16(sA + a_dst + p * 4096, src, ok);
       }
-      const int idx = tid + p * 128, bk = idx >> 3, bn = (idx & 7) * 8;
-      rb[p] = *reinterpret_cast<const uint4*>(W + static_cast<long long>(k0 + bk) * N + col0 + bn);
-    }
-  };
-  auto store = [&](int buf) {
-    __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem + buf * kStageBytes);
-    __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + buf * kStageBytes + kABytes);
+    } else {
+      const int tap = k0 / Cm, c = k0 - tap * Cm + ac * 8;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      *reinterpret_cast<uint4*>(As + a_row[p] * kAStride + a_col[p]) = ra[p];
-      const int idx = tid + p * 128, bk = idx >> 3, bn = (idx & 7) * 8;
-      *reinterpret_cast<uint4*>(Bs + bk * kBStride + bn) = rb[p];
+      for (int p = 0; p < 4; ++p) {
+        const long long off = a_ok[p] ? tap_offset(img[p], py[p], px[p], tap, S, Cm) : -1;
+        cp_async16(sA + a_dst + p * 4096, off >= 0 ? A + off + c : A, off >= 0);
+      }
+    }
+    // W: 64 depth rows x BN columns, BN / 8 chunks a row
+#pragma unroll
+    for (int p = 0; p < BN / 32; ++p) {
+      const int idx = tid + kThreads * p, kr = idx / (BN / 8), cn = idx % (BN / 8);
+      const bool ok = k0 + kr < K;
+      const __nv_bfloat16* src = ok ? W + static_cast<long long>(k0 + kr) * N + col0 + cn * 8 : W;
+      cp_async16(sB + (cn >> 3) * kBlockBytes + kr * 128 + (((cn & 7) ^ (kr & 7)) << 4), src, ok);
     }
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  const int wgi = tid >> 7;  // this warpgroup's 64 rows of the tile
 
-  load(0);
-  int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += kBK16) {
-    store(buf);
-    __syncthreads();  // this buffer is full; every warp is past the step that read it before
-    if (k0 + kBK16 < K) load(k0 + kBK16);
-    const __nv_bfloat16* As = reinterpret_cast<const __nv_bfloat16*>(smem + buf * kStageBytes);
-    const __nv_bfloat16* Bs =
-        reinterpret_cast<const __nv_bfloat16*>(smem + buf * kStageBytes + kABytes);
 #pragma unroll
-    for (int kk = 0; kk < kBK16; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * kAStride + kk, kAStride);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * kBStride + wn * 32 + j * 16, kBStride);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    buf ^= 1;
+  for (int s = 0; s < kDist; ++s) {
+    if (s < nk) load(s, s);
+    cp_async_commit();
   }
-  __syncthreads();  // the tiles are no longer read: reuse the memory for the accumulators
-  float* Cs = reinterpret_cast<float*>(smem);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kDist - 1>();  // this thread's copies of step kt have landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    __syncthreads();  // everyone's copies of kt are in; the products of kt - 2 are done
+    if (kt + kDist < nk) load(kt + kDist, (kt + kDist) % kStages);
+    cp_async_commit();
+    const uint32_t sA = base + (kt % kStages) * kStage, sB = sA + kABytes;
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      mma<BN>(acc, desc(sA + wgi * 64 * 128 + kk * 32, 16, 1024),
+              desc(sB + kk * 16 * 128, kBlockBytes, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // the products of kt - 1 are done: their stage may be refilled
+  }
+
+  // The epilogue, from the registers, 16 bytes a lane.  Per pair of 8-column
+  // groups jp, jp + 1 the four lanes of a quad hold two columns each of rows
+  // r and r + 8 (acc[4 j + 2 i + e]: row r + 8 i, column 8 j + 2 q + e);
+  // after a transpose within the quad, lane q holds the eight columns of
+  // group jp + (q & 1) of row r + 8 (q >> 1), whose residual it reads and
+  // whose bf16 it writes as one 16-byte access: whole 32-byte sectors.  The
+  // residual and scale/bias loads of kPairs pairs are issued together, the
+  // first ones before the last products end.
+  const int t = tid & 127, q = t & 3, quad0 = (t & 31) & ~3;
+  const int row = row0 + wgi * 64 + (t >> 5) * 16 + ((t & 31) >> 2) + 8 * (q >> 1);
+  const bool row_ok = row < rows;
+  const long long row_off = static_cast<long long>(row) * N + col0 + 8 * (q & 1);
+  constexpr int kPairs = 2;
+  uint4 rv[kPairs];
+  float2 sc[kPairs][2], bi[kPairs][2];
+  auto fetch = [&](int jp0) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kCStride + wn * 32 + j * 16, acc[i][j],
-                              kCStride, wmma::mem_row_major);
-  __syncthreads();
+    for (int u = 0; u < kPairs; ++u) {
+      const int jp = jp0 + 2 * u;
+      rv[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (res != nullptr && row_ok) rv[u] = *reinterpret_cast<const uint4*>(res + row_off + 8 * jp);
 #pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int idx = tid + p * 128, r = idx >> 4, c = (idx & 15) * 4;
-    if (row0 + r >= rows) continue;
-    const float v[4] = {Cs[r * kCStride + c], Cs[r * kCStride + c + 1], Cs[r * kCStride + c + 2],
-                        Cs[r * kCStride + c + 3]};
-    epilogue4<__nv_bfloat16>(v, sb, res, out, row0 + r, col0 + c, N, relu);
+      for (int h = 0; h < 2; ++h) {
+        const int c = col0 + 8 * (jp + h) + 2 * q;
+        sc[u][h] = *reinterpret_cast<const float2*>(sb + c);
+        bi[u][h] = *reinterpret_cast<const float2*>(sb + N + c);
+      }
+    }
+  };
+  fetch(0);
+  wgmma_wait<0>();
+  fence_acc(acc);
+#pragma unroll
+  for (int jp0 = 0; jp0 < BN / 8; jp0 += 2 * kPairs) {
+    if (jp0 > 0) fetch(jp0);
+#pragma unroll
+    for (int u = 0; u < kPairs; ++u) {
+      const int jp = jp0 + 2 * u;
+      // v[i][h][e]: row r + 8 i, group jp + h, column 2 q + e, scaled and biased
+      float v[2][2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          v[i][h][0] = acc[4 * (jp + h) + 2 * i] * sc[u][h].x + bi[u][h].x;
+          v[i][h][1] = acc[4 * (jp + h) + 2 * i + 1] * sc[u][h].y + bi[u][h].y;
+        }
+      // lane q gathers item (q >> 1, q & 1) from every lane of the quad
+      float o[8];
+#pragma unroll
+      for (int step = 0; step < 4; ++step) {
+        const int dst = (q + step) & 3, src = (q - step) & 3;  // send to dst, get from src
+        const int di = dst >> 1, dh = dst & 1;
+        float x0 = di ? (dh ? v[1][1][0] : v[1][0][0]) : (dh ? v[0][1][0] : v[0][0][0]);
+        float x1 = di ? (dh ? v[1][1][1] : v[1][0][1]) : (dh ? v[0][1][1] : v[0][0][1]);
+        x0 = __shfl_sync(0xffffffffu, x0, quad0 + src);
+        x1 = __shfl_sync(0xffffffffu, x1, quad0 + src);
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          if (w == src) {
+            o[2 * w] = x0;
+            o[2 * w + 1] = x1;
+          }
+      }
+      const __nv_bfloat162* r2 = reinterpret_cast<const __nv_bfloat162*>(&rv[u]);
+      uint4 packed;
+      __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 f = __bfloat1622float2(r2[w]);  // zeros without a residual
+        float a = o[2 * w] + f.x, b = o[2 * w + 1] + f.y;
+        if (relu) {
+          a = fmaxf(a, 0.f);
+          b = fmaxf(b, 0.f);
+        }
+        p2[w] = __floats2bfloat162_rn(a, b);
+      }
+      if (row_ok) *reinterpret_cast<uint4*>(out + row_off + 8 * jp) = packed;
+    }
   }
 }
 
-// One launch of a product; counts it into launches[which] once it is issued.
-struct Launcher {
-  int rows;
+}  // namespace wg
+
+// Counts a launch into launches[mode] (0: conv1x1_bn, 1: conv3x3_bn) once it
+// is issued; -> the launch's error.
+inline int issued(int* launches, int mode) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++launches[mode];
+  return 0;
+}
+
+// One product of a chain: mode 0 a 1x1 conv, mode 1 the 3x3 conv; `bn` is
+// the bf16 tile's width (the f32 tile is 64 x 64).
+struct F32Launch {
+  int rows, S;
   cudaStream_t stream;
   int* launches;
 
-  template <typename Kernel, typename T>
-  int operator()(Kernel kernel, int threads, int which, const T* A, const T* W,
-                 const float* sb, const T* res, T* out, int K, int N, int S, int Cm,
-                 int relu) const {
+  int operator()(int mode, int /*bn*/, const float* A, const float* W, const float* sb,
+                 const float* res, float* out, int K, int N, int Cm, int relu) const {
     const dim3 grid((rows + kTile - 1) / kTile, N / kTile);
-    kernel<<<grid, threads, 0, stream>>>(A, W, sb, res, out, rows, K, N, S, Cm, relu);
-    const cudaError_t err = cudaGetLastError();
+    if (mode == 0)
+      conv_gemm_f32<0><<<grid, 256, 0, stream>>>(A, W, sb, res, out, rows, K, N, S, Cm, relu);
+    else
+      conv_gemm_f32<1><<<grid, 256, 0, stream>>>(A, W, sb, res, out, rows, K, N, S, Cm, relu);
+    return issued(launches, mode);
+  }
+};
+
+struct Bf16Launch {
+  int rows, S;
+  cudaStream_t stream;
+  int* launches;
+
+  template <int MODE, int BN>
+  int go(const __nv_bfloat16* A, const __nv_bfloat16* W, const float* sb,
+         const __nv_bfloat16* res, __nv_bfloat16* out, int K, int N, int Cm, int relu) const {
+    constexpr int smem = wg::smem_bytes(BN);
+    const cudaError_t err = cudaFuncSetAttribute(
+        wg::conv_gemm_bf16<MODE, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    ++launches[which];
-    return 0;
+    const dim3 grid((rows + wg::kBM - 1) / wg::kBM, N / BN);
+    wg::conv_gemm_bf16<MODE, BN><<<grid, wg::kThreads, smem, stream>>>(A, W, sb, res, out, rows,
+                                                                       K, N, S, Cm, relu);
+    return issued(launches, MODE);
+  }
+
+  int operator()(int mode, int bn, const __nv_bfloat16* A, const __nv_bfloat16* W,
+                 const float* sb, const __nv_bfloat16* res, __nv_bfloat16* out, int K, int N,
+                 int Cm, int relu) const {
+    if (bn <= 0 || N % bn != 0) return static_cast<int>(cudaErrorInvalidValue);
+#define CONV_BF16_GO(BN)                                                               \
+  case BN:                                                                             \
+    return mode == 0 ? go<0, BN>(A, W, sb, res, out, K, N, Cm, relu)                   \
+                     : go<1, BN>(A, W, sb, res, out, K, N, Cm, relu);
+    switch (bn) {
+      CONV_BF16_GO(64)
+      CONV_BF16_GO(128)
+      CONV_BF16_GO(256)
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef CONV_BF16_GO
   }
 };
 
@@ -304,20 +547,19 @@ struct Launcher {
 // reads `cur` (x for block 0) and writes the buffer that makes the last block
 // write `out` (out and tmp alternate); y1, y2 are [B*S*S, M]; idt holds the
 // projection of block 0 when there is one.  w1r/sb1r hold blocks 1..n-1.
-template <typename T, typename K1, typename K3>
-int run_stage(K1 k1x1, K3 k3x3, int threads, const T* x, const T* w1f, const float* sb1f,
-              const T* wd, const float* sbd, const T* w1r, const float* sb1r, const T* w2,
-              const float* sb2, const T* w3, const float* sb3, T* out, T* tmp, T* y1, T* y2,
-              T* idt, int B, int S, int Cin, int C, int M, int n, int has_down, int* launches,
-              cudaStream_t stream) {
+// bn_m is the bf16 tile width of the launches with N = M (conv1, conv2),
+// bn_c of those with N = C (conv3, the projection).
+template <typename T, typename Launch>
+int run_stage(const Launch& launch, const T* x, const T* w1f, const float* sb1f, const T* wd,
+              const float* sbd, const T* w1r, const float* sb1r, const T* w2, const float* sb2,
+              const T* w3, const float* sb3, T* out, T* tmp, T* y1, T* y2, T* idt, int B, int S,
+              int Cin, int C, int M, int n, int has_down, int* launches, int bn_m, int bn_c) {
   launches[0] = launches[1] = 0;
-  const Launcher launch{B * S * S, stream, launches};
+  const T* none = nullptr;
   int err = 0;
   const T* ident = x;
   if (has_down) {
-    if ((err = launch(k1x1, threads, 0, x, wd, sbd, static_cast<const T*>(nullptr), idt, Cin, C,
-                      S, 0, 0)))
-      return err;
+    if ((err = launch(0, bn_c, x, wd, sbd, none, idt, Cin, C, 0, 0))) return err;
     ident = idt;
   }
   const T* cur = x;
@@ -325,15 +567,13 @@ int run_stage(K1 k1x1, K3 k3x3, int threads, const T* x, const T* w1f, const flo
     const T* w1 = i == 0 ? w1f : w1r + static_cast<long long>(i - 1) * C * M;
     const float* s1 = i == 0 ? sb1f : sb1r + static_cast<long long>(i - 1) * 2 * M;
     T* dst = ((n - 1 - i) % 2 == 0) ? out : tmp;
-    if ((err = launch(k1x1, threads, 0, cur, w1, s1, static_cast<const T*>(nullptr), y1,
-                      i == 0 ? Cin : C, M, S, 0, 1)))
-      return err;
+    if ((err = launch(0, bn_m, cur, w1, s1, none, y1, i == 0 ? Cin : C, M, 0, 1))) return err;
     const long long b = i;
-    if ((err = launch(k3x3, threads, 1, static_cast<const T*>(y1), w2 + b * 9 * M * M,
-                      sb2 + b * 2 * M, static_cast<const T*>(nullptr), y2, 9 * M, M, S, M, 1)))
+    if ((err = launch(1, bn_m, static_cast<const T*>(y1), w2 + b * 9 * M * M, sb2 + b * 2 * M,
+                      none, y2, 9 * M, M, M, 1)))
       return err;
-    if ((err = launch(k1x1, threads, 0, static_cast<const T*>(y2), w3 + b * M * C,
-                      sb3 + b * 2 * C, i == 0 ? ident : cur, dst, M, C, S, 0, 1)))
+    if ((err = launch(0, bn_c, static_cast<const T*>(y2), w3 + b * M * C, sb3 + b * 2 * C,
+                      i == 0 ? ident : cur, dst, M, C, 0, 1)))
       return err;
     cur = dst;
   }
@@ -355,18 +595,22 @@ int run_stage(K1 k1x1, K3 k3x3, int threads, const T* x, const T* w1f, const flo
       static_cast<const float*>(sb2), static_cast<const T*>(w3),                             \
       static_cast<const float*>(sb3), static_cast<T*>(out), static_cast<T*>(tmp),            \
       static_cast<T*>(y1), static_cast<T*>(y2), static_cast<T*>(idt), B, S, Cin, C, M, n,   \
-      has_down, launches, static_cast<cudaStream_t>(stream)
+      has_down, launches
 
 extern "C" {
 
 int conv_stage_f32(STAGE_PARAMS) {
-  return conv::run_stage<float>(conv::conv_gemm_f32<0>, conv::conv_gemm_f32<1>, 256,
-                                STAGE_ARGS(float));
+  const conv::F32Launch launch{B * S * S, S, static_cast<cudaStream_t>(stream), launches};
+  return conv::run_stage<float>(launch, STAGE_ARGS(float), 0, 0);
 }
 
-int conv_stage_bf16(STAGE_PARAMS) {
-  return conv::run_stage<__nv_bfloat16>(conv::conv_gemm_bf16<0>, conv::conv_gemm_bf16<1>, 128,
-                                        STAGE_ARGS(__nv_bfloat16));
+// bn_m, bn_c: the tile widths of conv_kernel.tile_width (64, 128 or 256)
+int conv_stage_bf16(STAGE_PARAMS, int bn_m, int bn_c) {
+  const conv::Bf16Launch launch{B * S * S, S, static_cast<cudaStream_t>(stream), launches};
+  return conv::run_stage<__nv_bfloat16>(launch, STAGE_ARGS(__nv_bfloat16), bn_m, bn_c);
 }
+
+// the dynamic shared memory of the bf16 kernel at tile width bn (bytes)
+int conv_stage_bf16_smem(int bn) { return conv::wg::smem_bytes(bn); }
 
 }  // extern "C"

@@ -25,8 +25,9 @@
 //   train_wgrad_partial   the weight gradients as products over all T*B
 //                         rows, [X|1]^T dGI, [Hprev|1]^T [dGI_rz|dGH_n] and
 //                         [Hprev|1]^T dATT2 (the ones column gives the bias
-//                         gradients), in 64 x 64 output tiles, each over
-//                         one of `splits` chunks of rows, into partials.
+//                         gradients): a pipelined f32 GEMM in 128 x 128
+//                         output tiles, each over one of `splits` chunks of
+//                         rows, into partials (design at pass 2 below).
 //   train_wgrad_reduce    sums the partials over the chunks, and d(v_a)
 //                         over the blocks of the recurrence, in a fixed
 //                         order: the gradients are deterministic.
@@ -40,8 +41,10 @@
 // GFLOP at B=1024, T=25, plus 0.25 G tanh per pass; the 0.8-1.6 MB of
 // weights do not fit on chip either, so they are read from L2 once per tile
 // and step and each weight is reused across the tile's RT rows (the design
-// of K1's cell kernel).  This first design computes in f32 on the CUDA
-// cores, bf16 being a storage type; tensor cores (wgmma) are the next step.
+// of K1's cell kernel).  The recurrence kernels compute in f32 on the CUDA
+// cores, bf16 being a storage type; tensor cores (wgmma) are their next
+// step.  Pass 2 is 20.6 GFLOP of f32 products at B=1024, T=25 (0.31 ms at
+// the 67 TFLOP/s f32 peak), which the JAX kernel takes in f32 too.
 //
 // Rounding.  The kernels round to the compute type W where the JAX kernel
 // keeps a value in it (rnd<W>): att2, the attention temporaries, the scores
@@ -463,79 +466,136 @@ __global__ void __launch_bounds__(256) train_bwd_recurrence_kernel(
 }
 
 // ------------------------------------------------------------ backward, pass 2
-constexpr int kTile = 64;   // output tile of the weight-gradient products
-constexpr int kDepth = 16;  // rows per shared-memory stage
+// out[m][k] = sum_n A'[n][m] * Bm[n][k] over a chunk of rows n, where A' is A
+// with one more column of ones (m == m_data), whose row of out is the column
+// sums of Bm: the bias gradient.  Columns k < b_split of Bm come from B, the
+// rest from B2 (column k - b_split): [dGI_rz | dGH_n] is one product.
+//
+// An f32 GEMM for the CUDA cores (the JAX kernel takes these products in f32,
+// so no TF32): a 128 x 128 output tile on 256 threads, each an 8 x 8
+// register tile (rows ty*8.., columns tx*4.. and 64 + tx*4..), read from
+// shared memory as four float4 per 64 FMAs.  The reduction runs over rows n
+// and every operand is row-major in n, so a stage (kDepth rows of A' and of
+// Bm) is copied straight from contiguous memory by 16-byte cp.async,
+// kStages deep, zero-filled past the chunk's last row; with 96 KB of stages
+// two blocks share an SM.  The ones column is a constant 1 written once into
+// each stage's A slice at m_data (which no copy touches), so the bias row
+// costs no tile of its own; a warp whose 16 rows of the tile all lie past
+// m_data skips its FMAs, so the ragged edge of M (401 = 3 * 128 + 17,
+// 201 = 128 + 73) costs little more than the rows it holds.  What bounds it
+// is FMA issue, and about 12% of the FMAs it runs fall outside the products:
+// the padding of the last column tile (600 = 4 * 128 + 88, 200 = 128 + 72)
+// and the rows of the edge warps past m_data.
+constexpr int kTile = 128;   // output rows (of A') and columns per block
+constexpr int kDepth = 32;   // rows n per stage
+constexpr int kStages = 3;
+constexpr int kStageFloats = 2 * kDepth * kTile;
+constexpr int kWgradSmem = kStages * kStageFloats * 4;  // 96 KB
 
-// out[m][k] = sum_n A'[n][m] * Bm[n][k] over a chunk of rows, where A' is A
-// with one more column of ones (m == M_data), whose row of out is the
-// column sums of Bm: the bias gradient.
 struct Product {
   const float* A;
-  const float* Bm;
-  int lda, m_data, ldb, k_cols, out_off, ldc, tiles_k, tiles;
+  const float* B;
+  const float* B2;
+  int lda, m_data, ldb, b_split, ldb2, k_cols, out_off, ldc, tiles_k, tiles;
 };
 
 struct Products {
-  Product p[4];
+  Product p[3];
 };
 
-__global__ void __launch_bounds__(256) train_wgrad_partial_kernel(Products prods,
-                                                                  float* __restrict__ partial,
-                                                                  int N, int total) {
-  __shared__ float As[kDepth][kTile];
-  __shared__ float Bs[kDepth][kTile];
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(256, 2) train_wgrad_partial_kernel(Products prods,
+                                                                     float* __restrict__ partial,
+                                                                     int N, int total) {
+  extern __shared__ float4 wgrad_smem[];
+  float* sm = reinterpret_cast<float*>(wgrad_smem);
   int tile = blockIdx.x, q = 0;
   while (tile >= prods.p[q].tiles) tile -= prods.p[q++].tiles;
   const Product& pr = prods.p[q];
-  const int M = pr.m_data + 1;
   const int m0 = (tile / pr.tiles_k) * kTile, k0 = (tile % pr.tiles_k) * kTile;
   const int per = (N + gridDim.y - 1) / gridDim.y;
-  const int n0 = blockIdx.y * per, n1 = min(N, n0 + per);
+  const int n0 = min(N, (int)blockIdx.y * per), n1 = min(N, n0 + per);
+  const int steps = (n1 - n0 + kDepth - 1) / kDepth;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
 
-  for (int nb = n0; nb < n1; nb += kDepth) {
-    for (int e = tid; e < kDepth * kTile; e += 256) {
-      const int d = e / kTile, c = e % kTile, n = nb + d;
-      const int m = m0 + c, k = k0 + c;
-      float av = 0.f, bv = 0.f;
-      if (n < n1) {
-        if (m < pr.m_data)
-          av = pr.A[(size_t)n * pr.lda + m];
-        else if (m == pr.m_data)
-          av = 1.f;
-        if (k < pr.k_cols) bv = pr.Bm[(size_t)n * pr.ldb + k];
-      }
-      As[d][c] = av;
-      Bs[d][c] = bv;
+  // the ones column: written once per stage, never overwritten by a copy
+  if (tid < kStages * kDepth && pr.m_data >= m0 && pr.m_data < m0 + kTile)
+    sm[(tid / kDepth) * kStageFloats + (tid % kDepth) * kTile + pr.m_data - m0] = 1.f;
+
+  // this thread's copies: chunk c4 (4 floats) of depth rows d0 + 8 p, of A'
+  // (columns m) and of Bm (columns k)
+  const int c4 = (tid & 31) * 4, d0 = tid >> 5;
+  const int m = m0 + c4, k = k0 + c4;
+  const float* bsrc = k < pr.b_split ? pr.B + k : pr.B2 + (k - pr.b_split);
+  const int ldb = k < pr.b_split ? pr.ldb : pr.ldb2;
+  auto load = [&](int step, int stage) {
+    float* sA = sm + stage * kStageFloats;
+    float* sB = sA + kDepth * kTile;
+#pragma unroll
+    for (int p = 0; p < kDepth / 8; ++p) {
+      const int d = d0 + 8 * p, n = n0 + step * kDepth + d;
+      const bool in = n < n1;
+      if (m < pr.m_data)
+        cp_async16(sA + d * kTile + c4, in ? pr.A + (size_t)n * pr.lda + m : pr.A, in);
+      if (k < pr.k_cols) cp_async16(sB + d * kTile + c4, in ? bsrc + (size_t)n * ldb : pr.B, in);
     }
-    __syncthreads();
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const bool active = m0 + 16 * (tid >> 5) <= pr.m_data;  // this warp holds a row of A'
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int step = 0; step < steps; ++step) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+    __syncthreads();  // stage `step` is in; every thread is past step - 1's FMAs
+    if (step + kStages - 1 < steps) load(step + kStages - 1, (step + kStages - 1) % kStages);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (!active) continue;
+    const float* sA = sm + (step % kStages) * kStageFloats;
+    const float* sB = sA + kDepth * kTile;
 #pragma unroll
     for (int d = 0; d < kDepth; ++d) {
-      float a[4], b[4];
+      const float4 a0 = *reinterpret_cast<const float4*>(sA + d * kTile + ty * 8);
+      const float4 a1 = *reinterpret_cast<const float4*>(sA + d * kTile + ty * 8 + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(sB + d * kTile + tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(sB + d * kTile + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[d][ty + 16 * i];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) b[i] = Bs[d][tx + 16 * i];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int l = 0; l < 4; ++l) acc[i][l] += a[i] * b[l];
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    __syncthreads();
   }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
   float* out = partial + (size_t)blockIdx.y * total + pr.out_off;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    const int r = m0 + ty * 8 + i;
+    if (r > pr.m_data) break;
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const int m = m0 + ty + 16 * i, k = k0 + tx + 16 * l;
-      if (m < M && k < pr.k_cols) out[(size_t)m * pr.ldc + k] = acc[i][l];
+    for (int h = 0; h < 2; ++h) {
+      const int c = k0 + 64 * h + tx * 4;
+      if (c < pr.k_cols)
+        *reinterpret_cast<float4*>(out + (size_t)r * pr.ldc + c) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
     }
+  }
 }
 
 __global__ void train_wgrad_reduce_kernel(const float* __restrict__ partial,
@@ -611,10 +671,11 @@ int bwd_entry(const void* const* p, void* const* o, int B, int T, int R, int F, 
   return launch_bwd<W, kTrainRows>(p, o, B, T, R, F, E, H, (cudaStream_t)stream);
 }
 
-Product product(const float* A, int lda, int m_data, const float* Bm, int ldb, int k_cols,
-                int out_off, int ldc) {
+Product product(const float* A, int lda, int m_data, const float* B, int ldb, int b_split,
+                const float* B2, int ldb2, int k_cols, int out_off, int ldc) {
   const int tiles_m = (m_data + 1 + kTile - 1) / kTile, tiles_k = (k_cols + kTile - 1) / kTile;
-  return Product{A, Bm, lda, m_data, ldb, k_cols, out_off, ldc, tiles_k, tiles_m * tiles_k};
+  return Product{A,     B,      B2,  lda,     m_data,           ldb,
+                 b_split, ldb2, k_cols, out_off, ldc, tiles_k, tiles_m * tiles_k};
 }
 
 }  // namespace
@@ -671,20 +732,27 @@ int train_bwd_recurrence_bf16(BWD_PARAMS) {
 int train_wgrad_partial(const void* X, const void* DGI, const void* HP, const void* DGHN,
                         const void* DATT2, void* partial, int N, int In, int H, int splits,
                         void* stream) {
+  // 16-byte copies and stores: every row and offset a multiple of 4 floats
+  if (N <= 0 || splits <= 0 || In % 4 || H % 4) return (int)cudaErrorInvalidValue;
   const int G = 3 * H;
   const int o1 = (In + 1) * G, o2 = o1 + (H + 1) * G, total = o2 + (H + 1) * H;
   const float *x = (const float*)X, *dgi = (const float*)DGI, *hp = (const float*)HP;
-  Products ps{{product(x, In, In, dgi, G, G, 0, G),
-               product(hp, H, H, dgi, G, 2 * H, o1, G),
-               product(hp, H, H, (const float*)DGHN, H, H, o1 + 2 * H, G),
-               product(hp, H, H, (const float*)DATT2, H, H, o2, H)}};
+  const float *dghn = (const float*)DGHN, *datt2 = (const float*)DATT2;
+  Products ps{{product(x, In, In, dgi, G, G, dgi, G, G, 0, G),
+               product(hp, H, H, dgi, G, 2 * H, dghn, H, G, o1, G),
+               product(hp, H, H, datt2, H, H, datt2, H, H, o2, H)}};
   int tiles = 0;
   for (const Product& pr : ps.p) tiles += pr.tiles;
-  if (N <= 0 || splits <= 0) return (int)cudaErrorInvalidValue;
-  train_wgrad_partial_kernel<<<dim3(tiles, splits), 256, 0, (cudaStream_t)stream>>>(
+  const cudaError_t err = cudaFuncSetAttribute(
+      train_wgrad_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgradSmem);
+  if (err != cudaSuccess) return (int)err;
+  train_wgrad_partial_kernel<<<dim3(tiles, splits), 256, kWgradSmem, (cudaStream_t)stream>>>(
       ps, (float*)partial, N, total);
   return (int)cudaGetLastError();
 }
+
+// the dynamic shared memory of train_wgrad_partial's kernel (bytes)
+int train_wgrad_smem() { return kWgradSmem; }
 
 int train_wgrad_reduce(const void* partial, void* out, int total, int splits,
                        const void* dva_part, void* d_va, int n_blocks, int H, void* stream) {

@@ -23,6 +23,7 @@ script exits non-zero without that last line.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import signal
@@ -149,7 +150,10 @@ def card_and_build():
     for line in info.log.splitlines():
         if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
             say("  ptxas:", line.strip())
-    _cuda.library()
+    lib = _cuda.library()
+    say("  dynamic shared memory: train_wgrad_partial "
+        f"{lib.train_wgrad_smem()} B; conv_gemm_bf16 at tile width "
+        + ", ".join(f"{bn}: {lib.conv_stage_bf16_smem(bn)} B" for bn in ck.TILE_WIDTHS))
 
 
 # ------------------------------------------------------------------ 2, 3
@@ -1101,10 +1105,33 @@ def check_k3(args, g, what: str, enforce: bool) -> dict:
     return errs
 
 
+# train_wgrad_partial's tilings at their edges, (N, In, H) on random rows:
+# N not a multiple of the 32-row stage, N below one split's rows (splits with
+# no rows), the ones row starting a new 128-row tile (In = H = 128, and
+# In = 256), ragged column tiles (3H = 372, 600) and the full width at a
+# ragged N
+WGRAD_EDGE = ((35, 48, 24), (15, 400, 200), (1, 32, 16), (32 * 33 + 5, 128, 128),
+              (773, 256, 124), (25600 + 7, 400, 200))
+
+
+def wgrad_edges() -> None:
+    """train_wgrad_partial against its plain version at WGRAD_EDGE, held to
+    the gradient tolerances."""
+    for i, (n, n_in, h) in enumerate(WGRAD_EDGE):
+        g = torch.Generator(device=DEVICE).manual_seed(60 + i)
+        rows = {k: torch.randn((n, w), generator=g, device=DEVICE)
+                for k, w in zip(ROW_NAMES, (n_in, 3 * h, h, h, h))}
+        err = grad_close(tk.wgrad_partial(rows), tk.wgrad_partial_plain(rows),
+                         f"wgrad partials N={n}, In={n_in}, H={h}")
+        say(f"  train_wgrad_partial N={n}, In={n_in}, H={h} ({tk.WGRAD_SPLITS} splits): "
+            f"max abs err {err:.2e}")
+
+
 def train_small_exactness():
     """K3 at small shapes in f32, with an odd batch (a partial row tile)
-    and a batch of one row; and d(v_a bias) = 0 through the autograd
-    Function on the card."""
+    and a batch of one row; the weight-gradient pass at its tiling's edges;
+    and d(v_a bias) = 0 through the autograd Function on the card."""
+    wgrad_edges()
     for i, shape in enumerate(SMALL_TRAIN):
         b, t = shape[:2]
         args = random_core(*shape, torch.float32, 40 + i)
@@ -1379,8 +1406,13 @@ K4_BF16_TOL = 2e-2    # small shapes; full width: K4_FULL_BF16_TOL
 K4_FULL_BF16_TOL = 5e-2
 ENCODER_F32_TOL = 1e-3
 # small K4 cases (stage, first block, blocks, B): every stage's widths at
-# reduced depth and odd B, stage 1's block 0 with its projection, single blocks
-K4_SMALL = ((0, 0, 2, 1), (0, 0, 1, 5), (1, 1, 2, 3), (2, 1, 3, 5), (3, 1, 1, 3))
+# reduced depth and odd B, stage 1's block 0 with its projection, single
+# blocks; row counts that are not a multiple of the bf16 kernel's 128-row
+# tile (all but one) and one that is (stage 1, B=2: 6272 = 49 * 128), and
+# stage 4 at B=1 (49 rows, less than one tile).  bf16 runs each case at
+# every pair of tile widths (N = M, N = C) the kernel takes for its M and C
+K4_SMALL = ((0, 0, 2, 1), (0, 0, 1, 5), (1, 1, 2, 3), (2, 1, 3, 5), (3, 1, 1, 3),
+            (0, 1, 2, 2), (2, 1, 2, 2), (3, 1, 2, 1))
 
 
 def k4_resnet(seed: int = 2):
@@ -1428,9 +1460,28 @@ def check_k4(x, packed, what: str, f32: bool, tol: float) -> tuple:
     return rel, (got.float() - ref.float()).abs().max().item()
 
 
+def width_pairs(m: int, c: int) -> list:
+    """Every pair of bf16 tile widths (N = m, N = c) the kernel takes."""
+    return [(bm, bc) for bm in ck.TILE_WIDTHS if m % bm == 0
+            for bc in ck.TILE_WIDTHS if c % bc == 0]
+
+
+@contextlib.contextmanager
+def forced_widths(bn_m: int, bn_c: int, m: int):
+    """Within: the bf16 K4 launches take tile width bn_m where N = m and
+    bn_c elsewhere, in place of ``tile_width``'s choice."""
+    chosen = ck.tile_width
+    ck.tile_width = lambda rows, n: bn_m if n == m else bn_c
+    try:
+        yield
+    finally:
+        ck.tile_width = chosen
+
+
 def k4_small(enc) -> None:
-    """(16) every K4 stage configuration at small batch and depth, f32 and
-    bf16, against the plain version; each chain must not be ReLU(input)."""
+    """(16) every K4 stage configuration at small batch and depth against the
+    plain version, f32 and bf16 (the latter at every pair of tile widths);
+    each chain must not be ReLU(input)."""
     cg = torch.Generator(device=DEVICE).manual_seed(16)
     for s, b0, n, b in K4_SMALL:
         blocks = enc["stages"][s][b0:b0 + n]
@@ -1439,9 +1490,12 @@ def k4_small(enc) -> None:
         packed = ck.pack_stage(blocks)
         what = (f"K4 stage {s + 1} blocks {b0}..{b0 + n - 1}"
                 f"{' with projection' if 'downsample' in blocks[0] else ''}, B={b}, S={S}")
-        for f32 in (True, False):
-            check_k4(x, packed, f"{what}, {'f32' if f32 else 'bf16'}", f32,
-                     K4_F32_TOL if f32 else K4_BF16_TOL)
+        check_k4(x, packed, f"{what}, f32", True, K4_F32_TOL)
+        M, C = packed["w2"].shape[2], packed["w3"].shape[2]
+        for bm, bc in width_pairs(M, C):
+            with forced_widths(bm, bc, M):
+                check_k4(x, packed, f"{what}, bf16, tile widths {bm} (N=M), {bc} (N=C)", False,
+                         K4_BF16_TOL)
         if cin == blocks[0]["conv3"]["kernel"].shape[3]:
             out = ck.fused_stage(x, packed, f32=True)
             gap = rel_err(out, torch.relu(x))
@@ -1736,6 +1790,25 @@ def k4_times(enc, encoders, x, ins, errs, served, images, rows):
     return entries
 
 
+def k4_width_sweep(encoders, ins) -> None:
+    """(19) K4 bf16 per stage at B=64 at every pair of tile widths (N = M,
+    N = C) the kernel takes, CUDA events: the measurements behind
+    ``tile_width``'s rule, printed beside its choice."""
+    enc16 = encoders[torch.bfloat16]
+    for s, xs in enumerate(ins[torch.bfloat16]):
+        chain = enc16.chains[s]
+        M, C = chain["w2"].shape[2], chain["w3"].shape[2]
+        rows = xs.shape[0] * xs.shape[1] * xs.shape[2]
+        times = []
+        for bm, bc in width_pairs(M, C):
+            with forced_widths(bm, bc, M):
+                times.append((device_ms(lambda: ck.fused_stage(xs, chain), 5), bm, bc))
+        say(f"  K4 stage {s + 1} bf16 (B={ENC_B}) by tile widths (N=M, N=C), ms per call: "
+            + ", ".join(f"({bm}, {bc}) {ms:.4f}" for ms, bm, bc in sorted(times))
+            + f"; tile_width chooses ({ck.tile_width(rows, M)}, {ck.tile_width(rows, C)}) "
+            f"[{CARD}]")
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -1801,6 +1874,7 @@ def main() -> int:
                 served[decode] = service_path(model, enc, images, rows, decode)
         with Phase("19 times, images in"):
             kernels += k4_times(enc, encoders, x, ins, errs, served, images, rows)
+            k4_width_sweep(encoders, ins)
     finally:
         for svc, _, _ in served.values():
             svc.close()

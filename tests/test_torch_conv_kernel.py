@@ -142,3 +142,48 @@ def test_pack_stage_casts_weights_not_scales(resnet50):
     for key, t in packed.items():
         want = torch.float32 if key.startswith("sb") else torch.bfloat16
         assert t.dtype == want, key
+
+
+# The four ResNet-152 chains at the caption service's batch of 64 images:
+# (rows = 64 * S * S, M, C), and the bf16 tile widths (N = M, N = C) that
+# were fastest, or level with the fastest, per stage on an H100 (PERF.md)
+STAGE_SHAPES = {"stage1": (64 * 56 * 56, 64, 256, (64, 256)),
+                "stage2": (64 * 28 * 28, 128, 512, (128, 256)),
+                "stage3": (64 * 14 * 14, 256, 1024, (256, 256)),
+                "stage4": (64 * 7 * 7, 512, 2048, (128, 256))}
+
+
+def _rounds_cost(rows, n, bn):
+    row_tiles = -(-rows // ck.TILE_ROWS)
+    return -(-row_tiles * (n // bn) // ck.SMS) * (bn + ck.TILE_ROWS)
+
+
+@pytest.mark.parametrize("name", sorted(STAGE_SHAPES))
+def test_tile_width_at_batch_64(name):
+    """At B=64 every launch of a chain gets the measured width; its grid
+    covers the rows and columns, and every launch fills at least three
+    quarters of the 132 SMs (stage 3's N=M products: 98 blocks of 256,
+    faster than 196 of 128, which take two rounds)."""
+    rows, M, C, want = STAGE_SHAPES[name]
+    got = (ck.tile_width(rows, M), ck.tile_width(rows, C))
+    assert got == want
+    for n, bn in zip((M, C), got):
+        row_tiles = -(-rows // ck.TILE_ROWS)
+        assert row_tiles * ck.TILE_ROWS >= rows > (row_tiles - 1) * ck.TILE_ROWS
+        assert n % bn == 0
+        assert row_tiles * (n // bn) >= 0.74 * ck.SMS
+
+
+@pytest.mark.parametrize("rows", [1, 127, 128, 129, 3 * 7 * 7, 5 * 56 * 56])
+@pytest.mark.parametrize("n", [64, 128, 192, 256, 512, 2048])
+def test_tile_width_covers_small_and_ragged_launches(rows, n):
+    """At any row count the width is one the kernel takes, divides n (the
+    kernel has no ragged column edge), and no other such width needs fewer
+    rounds of tiles x cost; on a tie the wider wins."""
+    bn = ck.tile_width(rows, n)
+    assert bn in ck.TILE_WIDTHS and n % bn == 0
+    for w in ck.TILE_WIDTHS:
+        if n % w == 0:
+            assert _rounds_cost(rows, n, bn) <= _rounds_cost(rows, n, w)
+            if _rounds_cost(rows, n, bn) == _rounds_cost(rows, n, w):
+                assert bn >= w

@@ -230,3 +230,30 @@ def test_wrappers_raise_off_cpu_and_cuda(which):
     }
     with pytest.raises(ValueError, match="no kernel"):
         calls[which]()
+
+
+@pytest.mark.parametrize("n", [1, 15, tk.WGRAD_SPLITS - 1, tk.WGRAD_SPLITS, 16 * 16 + 1, 25 * 1024])
+def test_wgrad_chunks_partition_the_rows(n):
+    """The plain pass 2a cuts the rows as the kernel does: WGRAD_SPLITS
+    consecutive chunks of ceil(n / splits) rows that cover 0..n once, the
+    last ones empty when n is below the split count."""
+    chunks = tk._chunks(n, tk.WGRAD_SPLITS)
+    assert len(chunks) == tk.WGRAD_SPLITS
+    per = -(-n // tk.WGRAD_SPLITS)
+    assert chunks[0][0] == 0 and chunks[-1][1] == n
+    for (a, b), (c, _) in zip(chunks, chunks[1:]):
+        assert b == c and 0 <= b - a <= per
+
+
+def test_wgrad_partial_plain_with_empty_chunks():
+    """Fewer rows than chunks: the chunks past the rows hold zeros, and the
+    chunks' sum is the whole product."""
+    rng = np.random.RandomState(3)
+    n, In, H = 5, 8, 4
+    rows = {k: torch.from_numpy(rng.randn(n, w).astype(np.float32))
+            for k, w in (("x", In), ("dgi", 3 * H), ("hp", H), ("dghn", H), ("datt2", H))}
+    partial = tk.wgrad_partial_plain(rows)
+    assert partial.shape == (tk.WGRAD_SPLITS, tk.wgrad_layout(In, H)["total"][0])
+    assert not partial[n:].any()
+    np.testing.assert_allclose(partial.sum(0).numpy(), tk.wgrad_plain(rows).numpy(),
+                               rtol=1e-5, atol=1e-6)
