@@ -4,7 +4,8 @@ The kernels have a plain C interface.  At first use every ``csrc/*.cu``
 (``beam_decode.cu``: the cell step and K1; ``greedy_decode.cu``: K2;
 ``train_recurrence.cu``: K3, the recurrence of training forward and
 backward; the three include ``decode_common.cuh``; ``conv_stage.cu``: K4,
-the encoder's bottleneck chains) is compiled for ``sm_90a`` by an ``nvcc``
+the encoder's bottleneck chains; K4 and the bf16 vocab products of K1 and
+K2 share the ``wgmma`` helpers of ``wgmma_common.cuh``) is compiled for ``sm_90a`` by an ``nvcc``
 process of its own, all started together, and one more ``nvcc`` call links
 the objects into one shared library under ``captionax_torch/_build/``,
 which ``ctypes`` loads.  The library's file name carries a hash of every
@@ -42,10 +43,10 @@ SIGNATURES = {
     "cell_step_f32": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 9 + [_P],
     "cell_step_bf16": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 9 + [_P],
     "logits_top3_partial_f32": [_P] * 8 + [_I] * 3 + [_P],
-    "logits_top3_partial_bf16": [_P] * 8 + [_I] * 3 + [_P],
+    "logits_top3_partial_bf16": [_P] * 8 + [_I] * 4 + [_P],
     "beam_select": [_P] * 15 + [_I] * 6 + [_P],
     "logits_top1_partial_f32": [_P] * 6 + [_I] * 3 + [_P],
-    "logits_top1_partial_bf16": [_P] * 6 + [_I] * 3 + [_P],
+    "logits_top1_partial_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "greedy_select": [_P] * 8 + [_I] * 6 + [_P],
     "train_fwd_f32": [_P] * 12 + [_I] * 7 + [_P],
     "train_fwd_bf16": [_P] * 12 + [_I] * 7 + [_P],
@@ -57,6 +58,7 @@ SIGNATURES = {
     "conv_stage_bf16": [_P] * 16 + [_I] * 7 + [_P, _P] + [_I] * 2,
     # sizes, not kernels: the dynamic shared memory of a kernel, in bytes
     "conv_stage_bf16_smem": [_I],
+    "vocab_product_smem": [_I],
     "train_wgrad_smem": [],
 }
 

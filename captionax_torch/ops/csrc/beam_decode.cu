@@ -16,10 +16,13 @@
 //                            greedy rows); the word is zero at t=0 when
 //                            zero_word_t0 is set (beam), the embedding of
 //                            token 0 otherwise (greedy).
-//   (b) logits_top3_partial  grid (vocab chunk of 128, row tile of 64): the
-//                            product h_new . fc_w[:, chunk] + fc_b in a
-//                            shared-memory tiled loop, then each row's top-3
-//                            (value, index) and (max, sum exp) of the chunk.
+//   (b) logits_top3_partial  the product h_new . fc_w + fc_b, then for each
+//                            row and 128-column chunk its top-3 (value,
+//                            index) and (max, sum exp): with bf16 weights on
+//                            wgmma (decode_common.cuh, vocab::product), 128
+//                            rows and several chunks a block; with f32
+//                            weights one 64-row x 128-column tile a block
+//                            on the CUDA cores.
 //   (c) beam_select          one warp per image: merges the partials into
 //                            each row's top-3 and logsumexp, takes the
 //                            image's top-3 of its 9 candidates, reorders h
@@ -29,13 +32,19 @@
 // What bounds it on this card: per step at B=1024 (3072 beam rows) the
 // vocab product of (b) is 2*3072*200*9728 = 12 GFLOP against ~11 MB of
 // bytes, so (b) is bound by operations; (a) moves the 49-region features
-// (~40 MB in bf16) and does ~2.5 GFLOP, and (c) moves ~20 MB.  This first
-// design does all arithmetic in f32 on the CUDA cores (bf16 is a storage
-// type, widened with __bfloat162float), which keeps the f32 mode exactly
-// comparable with the plain PyTorch version; (b) reuses each fc_w tile
-// across 64 rows from shared memory, and (a) reuses each theta column
-// across the rows of its tile, so device memory sees each weight about once
-// per tile.  Tensor-core products (wgmma) are the next step for (b).
+// (~40 MB in bf16) and does ~2.5 GFLOP, and (c) moves ~20 MB.  (a) and (c)
+// compute in f32 on the CUDA cores (bf16 is a storage type, widened with
+// __bfloat162float), and (a) reuses each theta column across the rows of
+// its tile.  With bf16 weights (b) runs on the tensor cores: h_new is split
+// into three exact bf16 terms, so the product is still the reference's f32
+// product of f32 h and bf16 fc_w (not one of bf16(h)), at 3x the
+// operations (36 GFLOP on 208 padded depths, 0.037 ms at the bf16 peak),
+// and a block keeps its 128 rows' terms in shared memory while fc_w's
+// chunks stream through a cp.async ring from L2.  Its epilogue works from
+// the accumulators: a row's chunk lies in one quad of lanes, so each lane
+// merges its 32 logits and two shuffles give the quad's top-3, exactly,
+// then the quad's max and one expf per logit its sum.  With f32 weights
+// (b) stays in f32 on the CUDA cores (no TF32), 64 x 128 tiles.
 //
 // The logits of a whole row never exist in device memory: (b) leaves
 // 8 numbers per (row, chunk).  Ties go to the first occurrence, as
@@ -294,7 +303,113 @@ __global__ void __launch_bounds__(256) cell_step_kernel(
 }
 
 // ---------------------------------------------------------------- (b)
-// Block (chunk c, row tile y), 256 threads as 16 x 16: thread (ty, tx) owns
+// bf16 weights: the product on wgmma (vocab::product).  Per warpgroup and
+// chunk each lane holds 32 logits of rows r and r + 8, met in ascending
+// column order, and the quad of lanes 4 (l / 4) .. + 3 holds a row's 128
+// (see decode_common.cuh).  In ascending order a later column ranks ahead
+// only when strictly greater, so a lane keeps its top-3 with three float
+// compares and no branch; the quad merges under the full order.
+__device__ __forceinline__ void top3_push(Top3& t, float v, int i) {
+  const bool a0 = v > t.v[0], a1 = v > t.v[1], a2 = v > t.v[2];
+  t.v[2] = a1 ? t.v[1] : a2 ? v : t.v[2];
+  t.i[2] = a1 ? t.i[1] : a2 ? i : t.i[2];
+  t.v[1] = a0 ? t.v[0] : a1 ? v : t.v[1];
+  t.i[1] = a0 ? t.i[0] : a1 ? i : t.i[1];
+  t.v[0] = a0 ? v : t.v[0];
+  t.i[0] = a0 ? i : t.i[0];
+}
+
+struct Top3Epilogue {
+  const float* __restrict__ fc_b;
+  float* __restrict__ pv;
+  int* __restrict__ pi;
+  float* __restrict__ pm;
+  float* __restrict__ ps;
+  int rows, n_chunks;
+
+  // Four independent lists (rows r, r + 8 x the lane's first and last 16
+  // columns), so that their select chains overlap; a last-16 list merges
+  // into its row's first-16 list by pushes, its indices being the greater.
+  __device__ __forceinline__ void operator()(float (&acc)[64], int row_base, int chunk) const {
+    const int lane = threadIdx.x & 31, q = lane & 3;
+    const int row_a = row_base + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+    const int col0 = chunk * kChunk + 2 * q;
+    Top3 t3[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      top3_init(t3[i][0]);
+      top3_init(t3[i][1]);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(fc_b + col0 + 8 * j));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float& l0 = acc[4 * j + 2 * i];
+        float& l1 = acc[4 * j + 2 * i + 1];
+        l0 += b.x;
+        l1 += b.y;
+        top3_push(t3[i][j / 8], l0, col0 + 8 * j);
+        top3_push(t3[i][j / 8], l1, col0 + 8 * j + 1);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      Top3& t = t3[i][0];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) top3_push(t, t3[i][1].v[k], t3[i][1].i[k]);
+      float mx = t.v[0];  // the quad's max, then one expf per logit
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        s[j % 2] += expf(acc[4 * j + 2 * i] - mx) + expf(acc[4 * j + 2 * i + 1] - mx);
+      float sum = s[0] + s[1];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      top3_butterfly(t, 4);
+      const int row = row_a + 8 * i;
+      if (q == 0 && row < rows) {
+        const size_t o = (size_t)row * n_chunks + chunk;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          pv[o * 3 + k] = t.v[k];
+          pi[o * 3 + k] = t.i[k];
+        }
+        pm[o] = mx;
+        ps[o] = sum;
+      }
+    }
+  }
+};
+
+template <int S>
+__global__ void __launch_bounds__(vocab::kThreads, 1) logits_top3_wgmma_kernel(
+    const float* __restrict__ h, const __nv_bfloat16* __restrict__ fc_w,
+    const float* __restrict__ fc_b, float* __restrict__ pv, int* __restrict__ pi,
+    float* __restrict__ pm, float* __restrict__ ps, const int* __restrict__ live, int rows,
+    int H, int Vp, int per_block) {
+  if (!step_runs(live)) return;
+  vocab::product<S>(h, fc_w, rows, H, Vp, per_block,
+                    Top3Epilogue{fc_b, pv, pi, pm, ps, rows, Vp / kChunk});
+}
+
+template <int S>
+int logits_top3_wgmma(const void* h, const void* fc_w, const void* fc_b, void* pv, void* pi,
+                      void* pm, void* ps, const void* live, int rows, int H, int Vp,
+                      int per_block, cudaStream_t stream) {
+  int grid = 0;
+  const cudaError_t err =
+      vocab::setup(logits_top3_wgmma_kernel<S>, fc_w, fc_b, rows, H, Vp, per_block, grid);
+  if (err != cudaSuccess) return (int)err;
+  logits_top3_wgmma_kernel<S><<<grid, vocab::kThreads, vocab::smem_bytes(H), stream>>>(
+      (const float*)h, (const __nv_bfloat16*)fc_w, (const float*)fc_b, (float*)pv, (int*)pi,
+      (float*)pm, (float*)ps, (const int*)live, rows, H, Vp, per_block);
+  return (int)cudaGetLastError();
+}
+
+// f32 weights: block (chunk c, row tile y), 256 threads as 16 x 16: thread (ty, tx) owns
 // rows ty + 16m (m < 4) and columns tx + 16n (n < 8) of the 64 x 128 tile.
 // The 16 threads of one row are one half-warp, which merges their top-3 and
 // logsumexp pairs with shuffles.  At most 64 registers, so that 4 blocks
@@ -539,12 +654,20 @@ int logits_top3_partial_f32(const void* h, const void* fc_w, const void* fc_b, v
   return logits_entry<float>(h, fc_w, fc_b, pv, pi, pm, ps, live, rows, H, Vp, stream);
 }
 
+// per_block: items (128-row tile, 128-column chunk) per block
+// (decode_kernel.vocab_items_per_block)
 int logits_top3_partial_bf16(const void* h, const void* fc_w, const void* fc_b, void* pv,
                              void* pi, void* pm, void* ps, const void* live, int rows,
-                             int H, int Vp, void* stream) {
-  return logits_entry<__nv_bfloat16>(h, fc_w, fc_b, pv, pi, pm, ps, live, rows, H, Vp,
-                                     stream);
+                             int H, int Vp, int per_block, void* stream) {
+  if (vocab::stages(H) == 8)
+    return logits_top3_wgmma<8>(h, fc_w, fc_b, pv, pi, pm, ps, live, rows, H, Vp, per_block,
+                                (cudaStream_t)stream);
+  return logits_top3_wgmma<4>(h, fc_w, fc_b, pv, pi, pm, ps, live, rows, H, Vp, per_block,
+                              (cudaStream_t)stream);
 }
+
+// the dynamic shared memory of the bf16 vocab products at depth H (bytes)
+int vocab_product_smem(int H) { return vocab::smem_bytes(H); }
 
 int beam_select(const void* pv, const void* pi, const void* pm, const void* ps,
                 const void* h_new, void* h, void* tok, void* score, const void* hist_in,

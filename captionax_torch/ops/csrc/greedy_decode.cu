@@ -8,19 +8,24 @@
 //
 //   (a)  cell_step            beam_decode.cu's cell kernel with one row per
 //                             image and the embedding of token 0 at t=0;
-//   (b1) logits_top1_partial  grid (vocab chunk of 128, row tile of 64): the
-//                             product h_new . fc_w[:, chunk] + fc_b (the tile
-//                             of (b), decode_common.cuh), then each row's
-//                             maximum of the chunk and its first argmax;
+//   (b1) logits_top1_partial  the product h_new . fc_w + fc_b as in (b)
+//                             (decode_common.cuh: bf16 weights on wgmma,
+//                             f32 on the CUDA cores), then each row's
+//                             maximum of each 128-column chunk and its
+//                             first argmax;
 //   (c1) greedy_select        one warp per row: merges the chunk partials,
 //                             writes the emitted token, retires the row on
 //                             </s>, keeps a retired row's h and token.
 //
 // What bounds it on this card: per step at B=1024 the product of (b1) is
-// 2*1024*200*9728 = 4 GFLOP against ~5 MB, bound by operations as (b) is,
-// and done in f32 on the CUDA cores (bf16 weights are widened on load);
-// (c1) moves ~2.4 MB.  The logits of a row never reach device memory: (b1)
-// leaves 2 numbers per (row, chunk).
+// 2*1024*200*9728 = 4 GFLOP against ~5 MB, bound by operations as (b) is.
+// With bf16 weights it runs on the tensor cores through (b)'s product, h
+// split into three exact bf16 terms (3x the operations; the f32 function
+// of the reference, not one of bf16(h)); its epilogue takes each lane's
+// (max, first argmax) of 32 logits from the accumulators and merges a
+// row's quad of lanes with two shuffles.  With f32 weights it stays in f32
+// on the CUDA cores.  (c1) moves ~2.4 MB.  The logits of a row never reach
+// device memory: (b1) leaves 2 numbers per (row, chunk).
 //
 // Semantics held to the reference: the merge keeps the greater value and,
 // on equal values, the lower index, which is the global first argmax of the
@@ -47,7 +52,94 @@ namespace {
 using namespace decode;
 
 // ---------------------------------------------------------------- (b1)
-// Block (chunk c, row tile y), 256 threads as 16 x 16: thread (ty, tx) owns
+// bf16 weights: the product on wgmma (vocab::product); lane l holds 32
+// logits of rows r and r + 8 in ascending column order, so a strictly
+// greater logit is the lane's new first argmax; the quad of lanes
+// 4 (l / 4) .. + 3 holds a row's 128 and merges under the full order.
+struct Top1Epilogue {
+  const float* __restrict__ fc_b;
+  float* __restrict__ pv;
+  int* __restrict__ pi;
+  int rows, n_chunks;
+
+  __device__ __forceinline__ void operator()(float (&acc)[64], int row_base, int chunk) const {
+    const int lane = threadIdx.x & 31, q = lane & 3;
+    const int row_a = row_base + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+    const int col0 = chunk * kChunk + 2 * q;
+    // rows r, r + 8 x the lane's first and last 16 columns: four chains
+    float bv[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+    int bi[2][2] = {{INT_MAX, INT_MAX}, {INT_MAX, INT_MAX}};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(fc_b + col0 + 8 * j));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float l0 = acc[4 * j + 2 * i] + b.x, l1 = acc[4 * j + 2 * i + 1] + b.y;
+        float& v = bv[i][j / 8];
+        int& x = bi[i][j / 8];
+        if (l0 > v) {
+          v = l0;
+          x = col0 + 8 * j;
+        }
+        if (l1 > v) {
+          v = l1;
+          x = col0 + 8 * j + 1;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (bv[i][1] > bv[i][0]) {  // the last 16 columns win only when strictly greater
+        bv[i][0] = bv[i][1];
+        bi[i][0] = bi[i][1];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float& v = bv[i][0];
+      int& x = bi[i][0];
+      for (int o = 1; o < 4; o <<= 1) {
+        const float v2 = __shfl_xor_sync(0xffffffffu, v, o);
+        const int x2 = __shfl_xor_sync(0xffffffffu, x, o);
+        if (ahead(v2, x2, v, x)) {
+          v = v2;
+          x = x2;
+        }
+      }
+      const int row = row_a + 8 * i;
+      if (q == 0 && row < rows) {
+        const size_t o = (size_t)row * n_chunks + chunk;
+        pv[o] = v;
+        pi[o] = x;
+      }
+    }
+  }
+};
+
+template <int S>
+__global__ void __launch_bounds__(vocab::kThreads, 1) logits_top1_wgmma_kernel(
+    const float* __restrict__ h, const __nv_bfloat16* __restrict__ fc_w,
+    const float* __restrict__ fc_b, float* __restrict__ pv, int* __restrict__ pi,
+    const int* __restrict__ live, int rows, int H, int Vp, int per_block) {
+  if (!step_runs(live)) return;
+  vocab::product<S>(h, fc_w, rows, H, Vp, per_block,
+                    Top1Epilogue{fc_b, pv, pi, rows, Vp / kChunk});
+}
+
+template <int S>
+int logits_top1_wgmma(const void* h, const void* fc_w, const void* fc_b, void* pv, void* pi,
+                      const void* live, int rows, int H, int Vp, int per_block,
+                      cudaStream_t stream) {
+  int grid = 0;
+  const cudaError_t err =
+      vocab::setup(logits_top1_wgmma_kernel<S>, fc_w, fc_b, rows, H, Vp, per_block, grid);
+  if (err != cudaSuccess) return (int)err;
+  logits_top1_wgmma_kernel<S><<<grid, vocab::kThreads, vocab::smem_bytes(H), stream>>>(
+      (const float*)h, (const __nv_bfloat16*)fc_w, (const float*)fc_b, (float*)pv, (int*)pi,
+      (const int*)live, rows, H, Vp, per_block);
+  return (int)cudaGetLastError();
+}
+
+// f32 weights: block (chunk c, row tile y), 256 threads as 16 x 16: thread (ty, tx) owns
 // rows ty + 16m (m < 4) and columns tx + 16n (n < 8); the 16 threads of a
 // row (one half-warp) merge their (max, first argmax) with shuffles.
 template <typename W>
@@ -163,11 +255,16 @@ int logits_top1_partial_f32(const void* h, const void* fc_w, const void* fc_b, v
   return logits_top1_entry<float>(h, fc_w, fc_b, pv, pi, live, rows, H, Vp, stream);
 }
 
+// per_block: items (128-row tile, 128-column chunk) per block
+// (decode_kernel.vocab_items_per_block)
 int logits_top1_partial_bf16(const void* h, const void* fc_w, const void* fc_b, void* pv,
                              void* pi, const void* live, int rows, int H, int Vp,
-                             void* stream) {
-  return logits_top1_entry<__nv_bfloat16>(h, fc_w, fc_b, pv, pi, live, rows, H, Vp,
-                                          stream);
+                             int per_block, void* stream) {
+  if (vocab::stages(H) == 8)
+    return logits_top1_wgmma<8>(h, fc_w, fc_b, pv, pi, live, rows, H, Vp, per_block,
+                                (cudaStream_t)stream);
+  return logits_top1_wgmma<4>(h, fc_w, fc_b, pv, pi, live, rows, H, Vp, per_block,
+                              (cudaStream_t)stream);
 }
 
 int greedy_select(const void* pv, const void* pi, const void* h_new, void* h, void* tok,

@@ -11,7 +11,11 @@ per step (``csrc/beam_decode.cu``, ``csrc/greedy_decode.cu``):
   shared by both decodes (3 rows per image and a zero word at t=0 for the
   beam, 1 row per image and the embedding of token 0 for greedy);
 - :func:`logits_top3_partial`  (b) vocab product + per-chunk top-3 and
-  logsumexp partials, never the whole row of logits;
+  logsumexp partials, never the whole row of logits; with bf16 weights
+  the product runs on the tensor cores, h_new split into three exact bf16
+  terms, so it is still the reference's f32 product (the f32 weights'
+  instance stays on the CUDA cores); :func:`vocab_items_per_block` spreads
+  its 128-row tiles and 128-column chunks over the card's SMs;
 - :func:`beam_select`          (c) merge the partials, top-3 of each
   image's 9 candidates, reorder by parent, retire completions;
 - :func:`logits_top1_partial`  (b1) vocab product + per-chunk maximum and
@@ -62,6 +66,8 @@ CHUNK = 128      # vocab columns per partial of (b) and (b1)
 TILE_ROWS = (3, 6, 12)   # rows per block of (a) that the library instantiates
 TILE_IMAGES = (1, 2, 4)  # beam images per block of (a): 3, 6 or 12 rows
 GREEDY_BLOCK_ROWS = 3    # rows per block of (a) for greedy: the fastest tile (PERF.md)
+VOCAB_ROWS = 128         # rows per block of the bf16 (b) and (b1): two warpgroups
+VOCAB_MAX_H = 256        # the widest h whose three bf16 terms fit in shared memory
 
 CELL = KernelOp("cell_step")
 LOGITS = KernelOp("logits_top3_partial")
@@ -100,6 +106,32 @@ def _launch_device(t: torch.Tensor) -> torch.device:
     if t.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {t.device}")
     return t.device
+
+
+def vocab_items_per_block(rows: int, n_chunks: int, sms: int) -> int:
+    """Items (128-row tile, 128-column chunk) per block of the bf16 (b) and
+    (b1): the fewest that put all ``ceil(rows / 128) * n_chunks`` items in
+    one wave of ``sms`` blocks.  The kernel runs one block an SM (its shared
+    memory holds the row tile's three terms of h, 160 KB at H=200) and walks
+    its items row-tile-major, so a block splits each row tile's h once and
+    reuses it for all its chunks of that tile."""
+    items = -(-rows // VOCAB_ROWS) * n_chunks
+    return max(1, -(-items // sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _vocab_args(h_new, fc_w, dev: torch.device, rows: int, C: int) -> Tuple[int, ...]:
+    """The bf16 (b)/(b1) entries' extra argument: items per block; none for
+    the f32 entries.  Raises on an h the bf16 kernels do not take."""
+    if fc_w.dtype != torch.bfloat16:
+        return ()
+    if h_new.shape[1] > VOCAB_MAX_H:
+        raise ValueError(f"h width {h_new.shape[1]} > {VOCAB_MAX_H}: no bf16 vocab kernel")
+    return (vocab_items_per_block(rows, C, _sms(dev)),)
 
 
 def _runs(live: Optional[torch.Tensor]) -> bool:
@@ -324,7 +356,7 @@ def logits_top3_partial(h_new, fc_w, fc_b, live: Optional[torch.Tensor] = None):
             f"logits_top3_partial_{_SUFFIX[fc_w.dtype]}",
             _ptr(h_new), _ptr(fc_w), _ptr(fc_b), _ptr(pv), _ptr(pi), _ptr(pm),
             _ptr(ps), gate, rows, h_new.shape[1], fc_w.shape[1],
-            torch.cuda.current_stream(dev).cuda_stream,
+            *_vocab_args(h_new, fc_w, dev, rows, C), torch.cuda.current_stream(dev).cuda_stream,
         )
     return pv, pi, pm, ps
 
@@ -441,7 +473,8 @@ def logits_top1_partial(h_new, fc_w, fc_b, live: Optional[torch.Tensor] = None):
         LOGITS1.launch(
             f"logits_top1_partial_{_SUFFIX[fc_w.dtype]}",
             _ptr(h_new), _ptr(fc_w), _ptr(fc_b), _ptr(pv), _ptr(pi), gate, rows,
-            h_new.shape[1], fc_w.shape[1], torch.cuda.current_stream(dev).cuda_stream,
+            h_new.shape[1], fc_w.shape[1], *_vocab_args(h_new, fc_w, dev, rows, C),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     return pv, pi
 

@@ -9,13 +9,15 @@ It builds the kernels (K1 beam, K2 greedy, K3 the training recurrence, K4
 the encoder's bottleneck chains) with nvcc, holds each kernel and
 each whole decode against their plain PyTorch versions and against the
 plain oracles that run every step (small shapes, then the full width of
-the hypernet attention-GRU model), serves batches through the port's beam
-and greedy servers, shows that the early exit fires, runs hypernet train
-steps through K3 and through the per-step loop, holds K4 against its plain
-version at small shapes and at the full width of ResNet-152, serves
-uint8 images through the port's ``CaptionService`` (ResNet-152 on K4, then
-K1 or K2), and times each kernel, each train step and the image path.  One
-line per phase gives the phase's seconds.  The line before the last is a
+the hypernet attention-GRU model), holds the bf16 vocab products of K1 and
+K2 (tensor cores, h split into three bf16 terms) against their plain
+versions at the edges of their tiling and on ties, serves batches through
+the port's beam and greedy servers, shows that the early exit fires, runs
+hypernet train steps through K3 and through the per-step loop, holds K4
+against its plain version at small shapes and at the full width of
+ResNet-152, serves uint8 images through the port's ``CaptionService``
+(ResNet-152 on K4, then K1 or K2), and times each kernel, each train step
+and the image path.  One line per phase gives the phase's seconds.  The line before the last is a
 JSON ``kernels`` record; the last line is ``{"ok": true, "device":
 {...}}``.  Any mismatch, a missing card or a failed build raises, and the
 script exits non-zero without that last line.
@@ -26,6 +28,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import re
 import signal
 import subprocess
 import sys
@@ -101,6 +104,13 @@ SMALL_SCORE_TOL = 1e-4
 ORACLE_SCORE_TOL = 3e-3  # kernel vs the plain beam_search, as tests/test_decode_kernel.py
 FULL_SCORE_TOL = 1e-3
 FULL_AGREEMENT = 0.99
+FULL_INDEX_SHARE = 1e-3  # (row, chunk) index lists of a bf16 vocab kernel that may differ at full width
+# the bf16 vocab products (tensor cores, h split into three bf16 terms): the
+# shapes of their edge sweep, and their kernels' names in ptxas's report
+VOCAB_EDGE_ROWS = (1, 3, 63, 64, 65, 127, 129, 192, 1024, 3072)
+VOCAB_EDGE_H = (24, 200, 256)  # 256: the widest h, on the 8-stage ring
+VOCAB_EDGE_VP = (128, 384, 9728)
+VOCAB_KERNELS = ("logits_top3_wgmma_kernel", "logits_top1_wgmma_kernel")
 
 CARD = ""
 DEVICE = "cuda"
@@ -135,6 +145,27 @@ def gen(seed: int) -> torch.Generator:
 
 
 # ------------------------------------------------------------------ 1
+def ptxas_report(log: str, name: str) -> dict:
+    """{entry: (registers, spill-store bytes, spill-load bytes)} of every
+    kernel whose mangled name holds ``name`` (each template instance), from
+    nvcc's ``-Xptxas -v`` output."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m[1] if name in m[1] else None
+            if entry:
+                out[entry] = [None, None, None]
+        elif entry:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[entry][1:] = [int(m[1]), int(m[2])]
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[entry][0] = int(m[1])
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def card_and_build():
     global CARD
     smi = subprocess.run(
@@ -148,12 +179,24 @@ def card_and_build():
     info = _cuda.build()
     say(f"nvcc build: {info.seconds:.2f} s -> {info.path.name}")
     for line in info.log.splitlines():
-        if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
+        if any(k in line for k in ("registers", "spill", "smem", "Compiling entry", "wgmma")):
             say("  ptxas:", line.strip())
+    if info.log:
+        for name in VOCAB_KERNELS:
+            report = ptxas_report(info.log, name)
+            require(len(report) > 0, f"ptxas reports no kernel {name}")
+            for entry, (regs, stores, loads) in report.items():
+                say(f"  {entry}: {regs} registers, {stores} B spill stores, {loads} B spill loads")
+                require(regs is not None and stores == 0 and loads == 0,
+                        f"{entry}: ptxas reports spills")
+    else:
+        say("  the library was already built: no ptxas report to check")
     lib = _cuda.library()
     say("  dynamic shared memory: train_wgrad_partial "
         f"{lib.train_wgrad_smem()} B; conv_gemm_bf16 at tile width "
-        + ", ".join(f"{bn}: {lib.conv_stage_bf16_smem(bn)} B" for bn in ck.TILE_WIDTHS))
+        + ", ".join(f"{bn}: {lib.conv_stage_bf16_smem(bn)} B" for bn in ck.TILE_WIDTHS)
+        + "; bf16 logits_top3_partial / logits_top1_partial at depth "
+        + ", ".join(f"{hd}: {lib.vocab_product_smem(hd)} B" for hd in VOCAB_EDGE_H))
 
 
 # ------------------------------------------------------------------ 2, 3
@@ -306,6 +349,22 @@ def small_exactness():
                             f"bank {seed}, block_images {bi}")
             say(f"  S=3 bank {seed}, </s> +{bias}, block_images {bi}: pieces max err {errs}; "
                 f"whole decode equal")
+    # bf16 weights: (b) on the tensor cores, h split into three bf16 terms
+    for seed, bias in SMALL_SEEDS + SMALL_EXIT_SEEDS:
+        p, raw = small_params(seed, bias)
+        dec = dk.BeamDecoder(p, None, max_steps=s["steps"], block_images=4, device=DEVICE)
+        errs = check_pieces(dec, raw)
+        compare_results(dec(raw), dec.forward_plain(raw), SMALL_SCORE_TOL, f"bf16 seed {seed}")
+        say(f"  bf16 weights, seed {seed}, </s> +{bias}: pieces max err {errs}; whole decode "
+            f"equal to the plain version")
+    for seed, bias in SMALL_BANKS:
+        p, raw, bank, rows, _ = small_bank(seed, bias)
+        dec = dk.BeamDecoder(p, bank, max_steps=s["steps"], block_images=4, device=DEVICE)
+        errs = check_pieces(dec, raw, rows)
+        compare_results(dec(raw, rows), dec.forward_plain(raw, rows), SMALL_SCORE_TOL,
+                        f"bf16 bank {seed}")
+        say(f"  bf16 weights, S=3 bank {seed}, </s> +{bias}: pieces max err {errs}; whole "
+            f"decode equal")
 
 
 def small_greedy_exactness():
@@ -338,6 +397,135 @@ def small_greedy_exactness():
         require(torch.equal(got, oracle), "greedy bank: kernel vs per-row-theta greedy")
         say(f"  greedy S=3 bank {seed}, </s> +{bias} (row 7 clamped to 2): pieces max err "
             f"{errs}; tokens equal to the plain version and to per-row-theta greedy")
+    # bf16 weights: (b1) on the tensor cores, h split into three bf16 terms
+    for seed, bias in SMALL_SEEDS + SMALL_EXIT_SEEDS:
+        p, raw = small_params(seed, bias)
+        dec = dk.GreedyDecoder(p, None, max_len=MAX_LEN, device=DEVICE)
+        errs = check_greedy_pieces(dec, raw)
+        require(torch.equal(dec(raw), dec.forward_plain(raw)), f"bf16 greedy seed {seed}")
+        say(f"  bf16 weights, greedy seed {seed}, </s> +{bias}: pieces max err {errs}; tokens "
+            f"equal to the plain version")
+    for seed, bias in SMALL_BANKS:
+        p, raw, bank, rows, _ = small_bank(seed, bias)
+        dec = dk.GreedyDecoder(p, bank, max_len=MAX_LEN, device=DEVICE)
+        errs = check_greedy_pieces(dec, raw, rows)
+        require(torch.equal(dec(raw, rows), dec.forward_plain(raw, rows)), f"bf16 greedy bank {seed}")
+        say(f"  bf16 weights, greedy S=3 bank {seed}, </s> +{bias}: pieces max err {errs}; "
+            f"tokens equal")
+
+
+# ------------------------------------------------------------------ 3b
+def exact_operands(rows: int, hd: int, vp: int, seed: int):
+    """h [rows, hd], fc_w [hd, vp] bf16 and fc_b [vp] whose logits are exact
+    in f32 in any order of the sums: each row of h has min(16, hd) nonzero
+    entries s1 2^-e + s2 2^-(e+9) + s3 2^-(e+18) (signs s, e in {1, 2}: most
+    split into three nonzero bf16 terms), fc_w is in {-1, 0, 1} and fc_b a
+    multiple of 2^-20 in (-2, 2), so every partial sum is a multiple of
+    2^-20 below 16 in magnitude: 24 bits.  Equal logits tie bit for bit."""
+    g = gen(seed)
+    k = min(16, hd)
+    pos = torch.rand((rows, hd), generator=g).argsort(dim=1)[:, :k]
+    e = torch.randint(1, 3, (rows, k), generator=g)
+    one = torch.ones((rows, k), dtype=torch.int64)
+
+    def sign():
+        return torch.randint(0, 2, (rows, k), generator=g) * 2 - 1
+
+    units = sign() * (one << (20 - e)) + sign() * (one << (11 - e)) + sign() * (one << (2 - e))
+    h = torch.zeros((rows, hd)).scatter_(1, pos, units.float() * 2.0 ** -20)
+    w = torch.randint(-1, 2, (hd, vp), generator=g).to(torch.bfloat16)
+    b = torch.randint(-2 ** 21 + 1, 2 ** 21, (vp,), generator=g).float() * 2.0 ** -20
+    return h.to(DEVICE), w.to(DEVICE), b.to(DEVICE)
+
+
+def random_operands(rows: int, hd: int, vp: int, seed: int):
+    """h = tanh(normal) (a GRU state: every f32 bit in use), fc_w = bf16 of
+    0.1 * normal, fc_b = 0.5 * normal."""
+    g = gen(seed)
+    h = torch.tanh(torch.randn((rows, hd), generator=g))
+    w = (torch.randn((hd, vp), generator=g) * 0.1).to(torch.bfloat16)
+    b = torch.randn((vp,), generator=g) * 0.5
+    return h.to(DEVICE), w.to(DEVICE), b.to(DEVICE)
+
+
+def lo_share(h) -> float:
+    """Share of h's nonzero entries whose third bf16 term is nonzero."""
+    r = h - h.to(torch.bfloat16).float()
+    lo = (r - r.to(torch.bfloat16).float()).to(torch.bfloat16)
+    return ((lo != 0).sum() / (h != 0).sum()).item()
+
+
+def vocab_compare(h, w, b, equal_indices: bool, equal_values: bool = False) -> dict:
+    """Both bf16 vocab kernels against their plain versions on one input:
+    values within SMALL_SCORE_TOL (the sums of exp relative to themselves);
+    the indices equal, or else at most FULL_INDEX_SHARE of the (row, chunk)
+    index lists differing; with ``equal_values`` (exact operands) the
+    maxima and top-3 values equal too."""
+    pk, pp = dk.logits_top3_partial(h, w, b), dk.logits_top3_partial_plain(h, w, b)
+    qk, qp = dk.logits_top1_partial(h, w, b), dk.logits_top1_partial_plain(h, w, b)
+    torch.cuda.synchronize()
+    out = {
+        "err": max((pk[0] - pp[0]).abs().max().item(), (pk[2] - pp[2]).abs().max().item(),
+                   (qk[0] - qp[0]).abs().max().item()),
+        "sum_rel": ((pk[3] - pp[3]).abs() / pp[3]).max().item(),
+        "top3_differ": (pk[1] != pp[1]).any(dim=2).float().mean().item(),
+        "top1_differ": (qk[1] != qp[1]).float().mean().item(),
+    }
+    what = f"rows {h.shape[0]}, H {h.shape[1]}, Vp {w.shape[1]}"
+    require(out["err"] <= SMALL_SCORE_TOL and out["sum_rel"] <= SMALL_SCORE_TOL,
+            f"bf16 vocab kernels, {what}: {out}")
+    if equal_indices:
+        require(torch.equal(pk[1], pp[1]) and torch.equal(qk[1], qp[1]),
+                f"bf16 vocab kernels, {what}: indices differ: {out}")
+    else:
+        require(max(out["top3_differ"], out["top1_differ"]) <= FULL_INDEX_SHARE,
+                f"bf16 vocab kernels, {what}: index lists differ: {out}")
+    if equal_values:
+        require(torch.equal(pk[0], pp[0]) and torch.equal(pk[2], pp[2])
+                and torch.equal(qk[0], qp[0]),
+                f"bf16 vocab kernels, {what}, exact logits: values differ: {out}")
+    return out
+
+
+def vocab_edges() -> None:
+    """The bf16 (b) and (b1) against their plain versions at every row count,
+    depth and padded vocab of the edge sweep, on exact and on random
+    operands; then ties: several zero fc_w columns with one fc_b, within a
+    chunk and across chunks, which tie bit for bit."""
+    worst = {"exact": {}, "random": {}}
+    shares = []
+    for i, (rows, hd, vp) in enumerate((r, hd, vp) for r in VOCAB_EDGE_ROWS
+                                       for hd in VOCAB_EDGE_H for vp in VOCAB_EDGE_VP):
+        for kind, make in (("exact", exact_operands), ("random", random_operands)):
+            ops = make(rows, hd, vp, 1000 + i)
+            exact = kind == "exact"
+            if exact:
+                shares.append(lo_share(ops[0]))
+            got = vocab_compare(*ops, equal_indices=exact, equal_values=exact)
+            for k, v in got.items():
+                worst[kind][k] = max(worst[kind].get(k, 0.0), v)
+    say(f"  edge sweep, {len(VOCAB_EDGE_ROWS) * len(VOCAB_EDGE_H) * len(VOCAB_EDGE_VP)} shapes "
+        f"(rows {VOCAB_EDGE_ROWS}, H {VOCAB_EDGE_H}, Vp {VOCAB_EDGE_VP}): exact operands "
+        f"(h's third bf16 term nonzero in {min(shares):.3f}-{max(shares):.3f} of its entries): "
+        f"indices and logits equal, worst {worst['exact']}; random operands: worst "
+        f"{worst['random']}")
+    tied = (5, 17, 64, 100, 130, 300)  # four in chunk 0, one in chunks 1 and 2
+    for kind, make in (("exact", exact_operands), ("random", random_operands)):
+        for rows, vp in ((3, 384), (129, 384), (64, 9728)):
+            if kind == "random" and vp > 384:
+                continue  # exact-index checks of random logits only where lists are few
+            h, w, b = make(rows, 200, vp, 77 + rows)
+            cols = list(tied) + [vp - 1]
+            w[:, cols] = 0
+            b[cols] = 20.0 if kind == "random" else 15.0
+            got = vocab_compare(h, w, b, equal_indices=True, equal_values=kind == "exact")
+            pk = dk.logits_top3_partial(h, w, b)
+            qk = dk.logits_top1_partial(h, w, b)
+            require(bool((pk[1][:, 0] == torch.tensor(tied[:3], device=DEVICE)).all())
+                    and bool((qk[1][:, :3] == torch.tensor([5, 130, 300], device=DEVICE)).all()),
+                    f"ties ({kind}, rows {rows}, Vp {vp}): not the first occurrences")
+            say(f"  ties ({kind} operands, rows {rows}, H 200, Vp {vp}, columns {cols} at one "
+                f"bias): first occurrences, indices equal to the plain version; {got}")
 
 
 # ------------------------------------------------------------------ 4, 5
@@ -694,24 +882,53 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
 
 
 def kernel_entry(name, op, kind, source, replaces, fn, plain, lib, n_bytes, flops, err,
-                 wdt, paths, per_batch):
-    """Time one kernel, its plain version and its library yardstick, and
-    give its line of the ``kernels`` record."""
+                 wdt, paths, per_batch, lib_bf16=None):
+    """Time one kernel, its plain version and its library yardstick (and,
+    for the vocab products, the library call on bf16(h), another function),
+    and give its line of the ``kernels`` record."""
     ms = device_ms(fn, 50)
     plain_ms = wall_ms(plain, 5)
     lib_ms = device_ms(lib, 20) if lib is not None else None
     bms, by = bound_ms(n_bytes, flops, wdt)
     launches = {path: counts[op.name] for path, counts in paths[kind].items()}
+    extra = {}
+    if lib_bf16 is not None:
+        extra["library_bf16_ms"] = device_ms(lib_bf16, 20)
     say(f"  {name}: {ms:.4f} ms/launch, {launches['main'] // per_batch} launches per "
         f"batch, bound {bms:.4f} ms by {by}, plain {plain_ms:.4f} ms, library "
-        f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}, max abs err {err:.3e} "
-        f"(B={B}, bf16 weights) [{CARD}]")
+        f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'}"
+        + (f" (on bf16(h): {extra['library_bf16_ms']:.4f} ms)" if extra else "")
+        + f", max abs err {err:.3e} (B={B}, bf16 weights) [{CARD}]")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches["main"], "launches_mixed": launches["mixed"],
         "launches_micro": launches["micro"], "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, **extra,
     }
+
+
+def check_full_width(pk, pp, what: str) -> float:
+    """A bf16 vocab kernel's partials against the plain version's at full
+    width: at most FULL_INDEX_SHARE of the (row, chunk) index lists differ,
+    the values (and the beam's sums of exp, relative) within FULL_SCORE_TOL.
+    -> the share of differing lists."""
+    idx = pk[1] != pp[1]
+    share = (idx.any(dim=2) if idx.dim() == 3 else idx).float().mean().item()
+    err = max((k - p).abs().max().item() for k, p in zip(pk[::2], pp[::2]))
+    rel = ((pk[3] - pp[3]).abs() / pp[3]).max().item() if len(pk) == 4 else 0.0
+    say(f"  {what} full width: share of (row, chunk) index lists that differ kernel vs "
+        f"plain {share:.2e}, max abs err of values {err:.3e}, of sums of exp (relative) "
+        f"{rel:.3e} [{CARD}]")
+    require(share <= FULL_INDEX_SHARE, f"{what}: {share} of index lists differ")
+    require(err <= FULL_SCORE_TOL and rel <= FULL_SCORE_TOL, f"{what}: values differ")
+    return share
+
+
+def depth16_ms(fn, h, w) -> float:
+    """A vocab kernel's time on the first 16 depths of h and fc_w: the same
+    rows, chunks, copies and epilogues with 1/13 of H=200's products."""
+    h16, w16 = h[:, :16].contiguous(), w[:16].contiguous()
+    return device_ms(lambda: fn(h16, w16), 50)
 
 
 def cell_cost(feats, att1, h, tok, styles, w, h_new):
@@ -760,20 +977,24 @@ def beam_times(model, theta, batches, paths):
 
     logits = lambda: dk.logits_top3_partial(hp, w["fc_w"], w["fc_b"])
     logits_plain = lambda: dk.logits_top3_partial_plain(hp, w["fc_w"], w["fc_b"])
-    h_lib = hp.to(wdt)
+    h_lib, w32 = hp.to(wdt), w["fc_w"].float()
 
-    def logits_library():
-        x = (torch.matmul(h_lib, w["fc_w"]).float() + w["fc_b"]).reshape(rows, C, dk.CHUNK)
-        return torch.topk(x, 3, dim=2), torch.logsumexp(x, dim=2)
+    def library_on(hh, ww):
+        def call():
+            x = (torch.matmul(hh, ww).float() + w["fc_b"]).reshape(rows, C, dk.CHUNK)
+            return torch.topk(x, 3, dim=2), torch.logsumexp(x, dim=2)
+        return call
 
     pk, pp = logits(), logits_plain()
-    idx_diff = (pk[1] != pp[1]).any(dim=2).float().mean().item()
-    say(f"  (b) full width: share of (row, chunk) top-3 index lists that differ "
-        f"kernel vs plain: {idx_diff:.2e}")
+    check_full_width(pk, pp, "(b)")
     out.append(kernel_entry(
         "logits_top3_partial", dk.LOGITS, "beam", BEAM_SOURCE, BEAM_TPU, logits, logits_plain,
-        logits_library, nbytes(hp, w["fc_w"], w["fc_b"], *pk), 2 * rows * H * vp,
-        (pk[0] - pp[0]).abs().max().item(), wdt, paths, per_batch))
+        library_on(hp, w32), nbytes(hp, w["fc_w"], w["fc_b"], *pk), 2 * rows * H * vp,
+        (pk[0] - pp[0]).abs().max().item(), wdt, paths, per_batch,
+        lib_bf16=library_on(h_lib, w["fc_w"])))
+    d16 = depth16_ms(lambda hh, ww: dk.logits_top3_partial(hh, ww, w["fc_b"]), hp, w["fc_w"])
+    say(f"  logits_top3_partial at depth 16 (its epilogues, copies and h split with 1/13 of "
+        f"the products): {d16:.4f} ms against {out[-1]['ms']:.4f} at depth {H} (B={B}) [{CARD}]")
 
     base = clone_state(state)
     sk, sp = clone_state(base), clone_state(base)
@@ -842,19 +1063,24 @@ def greedy_times(model, theta, batches, paths):
 
     logits = lambda: dk.logits_top1_partial(hp, w["fc_w"], w["fc_b"])
     logits_plain = lambda: dk.logits_top1_partial_plain(hp, w["fc_w"], w["fc_b"])
-    h_lib = hp.to(wdt)
+    h_lib, w32 = hp.to(wdt), w["fc_w"].float()
 
-    def logits_library():
-        x = torch.matmul(h_lib, w["fc_w"]).float() + w["fc_b"]
-        return x.reshape(rows, C, dk.CHUNK).max(dim=2)
+    def library_on(hh, ww):
+        def call():
+            x = torch.matmul(hh, ww).float() + w["fc_b"]
+            return x.reshape(rows, C, dk.CHUNK).max(dim=2)
+        return call
 
     pk, pp = logits(), logits_plain()
-    say(f"  (b1) full width: share of (row, chunk) argmaxes that differ kernel vs plain: "
-        f"{(pk[1] != pp[1]).float().mean().item():.2e}")
+    check_full_width(pk, pp, "(b1)")
     out.append(kernel_entry(
         "logits_top1_partial", dk.LOGITS1, "greedy", GREEDY_SOURCE, GREEDY_TPU, logits,
-        logits_plain, logits_library, nbytes(hp, w["fc_w"], w["fc_b"], *pk),
-        2 * rows * H * vp, (pk[0] - pp[0]).abs().max().item(), wdt, paths, per_batch))
+        logits_plain, library_on(hp, w32), nbytes(hp, w["fc_w"], w["fc_b"], *pk),
+        2 * rows * H * vp, (pk[0] - pp[0]).abs().max().item(), wdt, paths, per_batch,
+        lib_bf16=library_on(h_lib, w["fc_w"])))
+    d16 = depth16_ms(lambda hh, ww: dk.logits_top1_partial(hh, ww, w["fc_b"]), hp, w["fc_w"])
+    say(f"  logits_top1_partial at depth 16 (its epilogues, copies and h split with 1/13 of "
+        f"the products): {d16:.4f} ms against {out[-1]['ms']:.4f} at depth {H} (B={B}) [{CARD}]")
 
     base = clone_state(state)
     sk, sp = clone_state(base), clone_state(base)
@@ -877,6 +1103,55 @@ def greedy_times(model, theta, batches, paths):
     say(f"  (c1) full width: state equal to the plain version; {live}/{rows} rows live "
         f"after step {t}")
     return out
+
+
+def service_step_times(model, batches) -> None:
+    """Each decode kernel at the caption service's batch (ENC_B images on an
+    S=3 bank, bf16, the decoder at +MID_BIAS on </s>): K1's three kernels
+    at 3 * ENC_B rows and K2's at ENC_B rows, at step 1 with the exit flags
+    open, beside their bounds."""
+    bank, style_rows, _ = style_bank(model)
+    x, rows_in = batches[0][:ENC_B], style_rows[:ENC_B]
+    d = mid_copy(model["decoder"])
+    for kind in ("beam", "greedy"):
+        if kind == "beam":
+            dec = dk.BeamDecoder(d, bank, max_steps=MAX_STEPS, device=DEVICE)
+            cell = functools.partial(dk.cell_step, block_rows=dk.K * dec.block_images)
+            logits, select, init = dk.logits_top3_partial, dk.beam_select, dk._init_state
+            names = ("cell_step (beam rows)", "logits_top3_partial", "beam_select")
+        else:
+            dec = dk.GreedyDecoder(d, bank, max_len=MAX_LEN, device=DEVICE)
+            cell = functools.partial(dk.cell_step, zero_word_t0=False,
+                                     block_rows=dk.GREEDY_BLOCK_ROWS)
+            logits, select, init = dk.logits_top1_partial, dk.greedy_select, dk._init_greedy_state
+            names = ("cell_step (greedy rows)", "logits_top1_partial", "greedy_select")
+        feats, att1, h0, styles = dec.prepare(x, rows_in)
+        w = dec.weights()
+        state = init(h0, MAX_STEPS if kind == "beam" else MAX_LEN)
+        h1 = cell(feats, att1, state["h"], state["tok"], styles, 0, w)
+        select(*logits(h1, w["fc_w"], w["fc_b"]), h1, state, 0, END)
+        if kind == "beam":
+            state["hist_in"], state["hist_out"] = state["hist_out"], state["hist_in"]
+        state["run"].fill_(1)
+        t = 1
+        hk = cell(feats, att1, state["h"], state["tok"], styles, t, w)
+        parts = logits(hk, w["fc_w"], w["fc_b"])
+        scratch = clone_state(state)
+        rows = hk.shape[0]
+        vp = w["fc_w"].shape[1]
+        times = (
+            device_ms(lambda: cell(feats, att1, state["h"], state["tok"], styles, t, w), 50),
+            device_ms(lambda: logits(hk, w["fc_w"], w["fc_b"]), 50),
+            device_ms(lambda: select(*parts, hk, scratch, t, END), 50),
+        )
+        cell_b, cell_f = cell_cost(feats, att1, state["h"], state["tok"], styles, w, hk)
+        bounds = (bound_ms(cell_b, cell_f, w["fc_w"].dtype),
+                  bound_ms(nbytes(hk, w["fc_w"], w["fc_b"], *parts), 2 * rows * H * vp,
+                           w["fc_w"].dtype))
+        say(f"  {kind} step at the service's batch ({ENC_B} images, {rows} rows, S=3 bank): "
+            + ", ".join(f"{n} {ms:.4f} ms" for n, ms in zip(names, times))
+            + f"; bounds {bounds[0][0]:.4f} ms ({bounds[0][1]}), {bounds[1][0]:.4f} ms "
+            f"({bounds[1][1]}); {sum(times):.4f} ms a step [{CARD}]")
 
 
 def bare_launch_ms(op, call) -> float:
@@ -1828,6 +2103,8 @@ def main() -> int:
         small_exactness()
     with Phase("3 small-shape exactness, greedy"):
         small_greedy_exactness()
+    with Phase("3b the bf16 vocab products at their edges and ties"):
+        vocab_edges()
     paths = {"beam": {}, "greedy": {}}
     with Phase("4 full width, beam main path"):
         model, theta, batches = full_model()
@@ -1848,6 +2125,7 @@ def main() -> int:
     with Phase("11 times"):
         kernels = beam_times(model, theta, batches, paths)
         kernels += greedy_times(model, theta, batches, paths)
+        service_step_times(model, batches)
         skipped_step_cost(model, theta, batches)
         decode_host_time(model, theta, batches)
         served_rates(model, theta, batches)
