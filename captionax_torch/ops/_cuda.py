@@ -41,7 +41,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # c_void_p (a bare Python int would be cut to 32 bits), every size a c_int.
 SIGNATURES = {
     "cell_step_f32": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 9 + [_P],
-    "cell_step_bf16": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 9 + [_P],
+    "cell_step_bf16": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 12 + [_P],
     "logits_top3_partial_f32": [_P] * 8 + [_I] * 3 + [_P],
     "logits_top3_partial_bf16": [_P] * 8 + [_I] * 4 + [_P],
     "beam_select": [_P] * 15 + [_I] * 6 + [_P],
@@ -59,6 +59,8 @@ SIGNATURES = {
     # sizes, not kernels: the dynamic shared memory of a kernel, in bytes
     "conv_stage_bf16_smem": [_I],
     "vocab_product_smem": [_I],
+    "cell_attend_smem": [_I] * 4,
+    "cell_gates_smem": [_I] * 4,
     "train_wgrad_smem": [],
 }
 

@@ -8,14 +8,22 @@
 // keeps the weights in device memory / L2 (50 MB) and splits a beam step in
 // three launches that a host loop issues on the current stream:
 //
-//   (a) cell_step            one block per tile of `block_rows` rows:
-//                            embedding gather, Bahdanau attention with att1
+//   (a) cell_step            embedding gather, Bahdanau attention with att1
 //                            precomputed, GRU on the theta bank row picked
-//                            by the clamped style.  Row r belongs to image
-//                            r / rows_per_image (3 for beam rows, 1 for
-//                            greedy rows); the word is zero at t=0 when
-//                            zero_word_t0 is set (beam), the embedding of
-//                            token 0 otherwise (greedy).
+//                            by the clamped style: the TPU kernels'
+//                            _cell_core / _cell_core_multi inside
+//                            _beam_kernel and _greedy_kernel.  Row r
+//                            belongs to image r / rows_per_image (3 for
+//                            beam rows, 1 for greedy rows); the word is
+//                            zero at t=0 when zero_word_t0 is set (beam),
+//                            the embedding of token 0 otherwise (greedy).
+//                            With bf16 weights two launches behind one C
+//                            entry (namespace cell, below): an attention
+//                            phase, a block per `block_rows` rows, and a
+//                            gate phase on the tensor cores, a block per
+//                            (row tile, group of hidden units).  With f32
+//                            weights one launch, f32 on the CUDA cores
+//                            (cell_step_kernel): the exactness path.
 //   (b) logits_top3_partial  the product h_new . fc_w + fc_b, then for each
 //                            row and 128-column chunk its top-3 (value,
 //                            index) and (max, sum exp): with bf16 weights on
@@ -32,10 +40,36 @@
 // What bounds it on this card: per step at B=1024 (3072 beam rows) the
 // vocab product of (b) is 2*3072*200*9728 = 12 GFLOP against ~11 MB of
 // bytes, so (b) is bound by operations; (a) moves the 49-region features
-// (~40 MB in bf16) and does ~2.5 GFLOP, and (c) moves ~20 MB.  (a) and (c)
-// compute in f32 on the CUDA cores (bf16 is a storage type, widened with
-// __bfloat162float), and (a) reuses each theta column across the rows of
-// its tile.  With bf16 weights (b) runs on the tensor cores: h_new is split
+// (~40 MB in bf16), does 2.2 GFLOP of gate products, 0.25 of U_a h and 30M
+// tanhf; (c) moves ~20 MB.  (c) computes in f32 on the CUDA cores (bf16 is
+// a storage type, widened with __bfloat162float).
+//
+// (a) with bf16 weights.  Its first design ran the gate products as f32
+// FMAs, a thread per hidden column, every block reading all 720 KB of the
+// theta from L2, and with a bank one row of a block at a time (at the
+// service's 192 rows, 96% of a beam step).  Now:
+// - the gate products and U_a h run on the tensor cores, mma.sync m16n8k16
+//   (16-row tiles leave enough blocks at 64-192 rows, where wgmma's 64-row
+//   tiles would not), [x | h] and h split into three exact bf16 terms as in
+//   (b), so they are still the f32 products (3x the operations: 6.6 GFLOP
+//   at B=1024, 0.007 ms at the bf16 peak);
+// - the theta is packed once per decoder in fragment order with each group
+//   of 8 hidden units' r, z and n columns side by side
+//   (decode_kernel.pack_gate_theta), so the GRU runs from one warp's
+//   accumulators and the gates never reach device memory;
+// - a row tile takes the bank's product once per style present in it, the
+//   other styles' rows zero in the A fragments (exact zeros);
+// - the gate phase's grid is (row tile, group of hidden units),
+//   decode_kernel.gate_tile: 156 blocks at 192 rows; the attention phase
+//   reads each image's att1 and feats once for all its rows and writes
+//   [x | h] split for the gate phase, which copies its rows' terms to
+//   shared memory with cp.async and reads fragments with ldmatrix.
+// What bounds it now (PERF.md): the attention phase, above all the 30M
+// tanhf of the scores on the CUDA cores (tanhf, not tanh.approx), and the
+// gate products at mma.sync's rate.  The f32 instance keeps f32 FMAs on the
+// CUDA cores, exact against its plain version to the order of the sums.
+//
+// (b) with bf16 weights runs on the tensor cores: h_new is split
 // into three exact bf16 terms, so the product is still the reference's f32
 // product of f32 h and bf16 fc_w (not one of bf16(h)), at 3x the
 // operations (36 GFLOP on 208 padded depths, 0.037 ms at the bf16 peak),
@@ -149,14 +183,15 @@ __device__ __forceinline__ void lse_butterfly(float& m, float& s, int width) {
 // Rows r0 .. r0+RT-1 of the batch (row = image*rows_per_image + slot).
 // feats/att1 are per image ([B, R, F], [B, R, H]); the theta bank is
 // [S, In, 3H] / [S, H, 3H] (S = 1 for a single theta), biases [S, 3H] in f32.
-template <typename W, int RT, bool MULTI>
+// f32 weights only: with bf16 weights (a) runs in namespace cell below.
+template <int RT, bool MULTI>
 __global__ void __launch_bounds__(256) cell_step_kernel(
-    const W* __restrict__ feats, const W* __restrict__ att1,
+    const float* __restrict__ feats, const float* __restrict__ att1,
     const float* __restrict__ h, const int* __restrict__ tok,
-    const int* __restrict__ styles, int t, const W* __restrict__ emb,
-    const W* __restrict__ ua_w, const float* __restrict__ ua_b,
-    const float* __restrict__ va, const W* __restrict__ wih,
-    const W* __restrict__ whh, const float* __restrict__ bih,
+    const int* __restrict__ styles, int t, const float* __restrict__ emb,
+    const float* __restrict__ ua_w, const float* __restrict__ ua_b,
+    const float* __restrict__ va, const float* __restrict__ wih,
+    const float* __restrict__ whh, const float* __restrict__ bih,
     const float* __restrict__ bhh, float* __restrict__ h_new,
     const int* __restrict__ live, int rows, int rows_per_image, int zero_word_t0,
     int R, int F, int E, int H, int S) {
@@ -200,7 +235,7 @@ __global__ void __launch_bounds__(256) cell_step_kernel(
 
   for (int p = warp; p < nr * R; p += nw) {
     const int r = p / R, rho = p % R;
-    const W* a1 = att1 + ((size_t)((r0 + r) / rows_per_image) * R + rho) * H;
+    const float* a1 = att1 + ((size_t)((r0 + r) / rows_per_image) * R + rho) * H;
     float s = 0.f;
     for (int j = lane; j < H; j += 32) s += tanhf(to_f(a1[j]) + sa2[r * H + j]) * va[j];
     s = warp_sum(s);
@@ -227,7 +262,7 @@ __global__ void __launch_bounds__(256) cell_step_kernel(
     const int r = e / F, f = e % F;
     float c = 0.f;
     if (r < nr) {
-      const W* fp = feats + (size_t)((r0 + r) / rows_per_image) * R * F + f;
+      const float* fp = feats + (size_t)((r0 + r) / rows_per_image) * R * F + f;
       for (int rho = 0; rho < R; ++rho) c += sw[r * R + rho] * to_f(fp[(size_t)rho * F]);
     }
     sx[r * In + E + f] = c;
@@ -242,7 +277,7 @@ __global__ void __launch_bounds__(256) cell_step_kernel(
 #pragma unroll
         for (int r = 0; r < RT; ++r) gi[g][r] = gh[g][r] = 0.f;
       for (int i = 0; i < In; ++i) {
-        const W* wr = wih + (size_t)i * G + j;
+        const float* wr = wih + (size_t)i * G + j;
         const float w0 = to_f(wr[0]), w1 = to_f(wr[H]), w2 = to_f(wr[2 * H]);
 #pragma unroll
         for (int r = 0; r < RT; ++r) {
@@ -253,7 +288,7 @@ __global__ void __launch_bounds__(256) cell_step_kernel(
         }
       }
       for (int i = 0; i < H; ++i) {
-        const W* wr = whh + (size_t)i * G + j;
+        const float* wr = whh + (size_t)i * G + j;
         const float w0 = to_f(wr[0]), w1 = to_f(wr[H]), w2 = to_f(wr[2 * H]);
 #pragma unroll
         for (int r = 0; r < RT; ++r) {
@@ -274,21 +309,21 @@ __global__ void __launch_bounds__(256) cell_step_kernel(
     } else {
       for (int r = 0; r < nr; ++r) {
         const int s = min(max(styles[(r0 + r) / rows_per_image], 0), S - 1);
-        const W* wi = wih + (size_t)s * In * G + j;
-        const W* wh = whh + (size_t)s * H * G + j;
+        const float* wi = wih + (size_t)s * In * G + j;
+        const float* wh = whh + (size_t)s * H * G + j;
         const float* bi = bih + (size_t)s * G;
         const float* bh = bhh + (size_t)s * G;
         float i0 = 0.f, i1 = 0.f, i2 = 0.f, h0 = 0.f, h1 = 0.f, h2 = 0.f;
         for (int i = 0; i < In; ++i) {
           const float x = sx[r * In + i];
-          const W* wr = wi + (size_t)i * G;
+          const float* wr = wi + (size_t)i * G;
           i0 += x * to_f(wr[0]);
           i1 += x * to_f(wr[H]);
           i2 += x * to_f(wr[2 * H]);
         }
         for (int i = 0; i < H; ++i) {
           const float x = sh[r * H + i];
-          const W* wr = wh + (size_t)i * G;
+          const float* wr = wh + (size_t)i * G;
           h0 += x * to_f(wr[0]);
           h1 += x * to_f(wr[H]);
           h2 += x * to_f(wr[2 * H]);
@@ -563,7 +598,7 @@ __global__ void __launch_bounds__(128) beam_select_kernel(
   }
 }
 
-// The arguments of every cell entry, in the order of the C interface.
+// The arguments of the f32 cell entry, in the order of the C interface.
 struct CellArgs {
   const void *feats, *att1, *h, *tok, *styles;
   int t;
@@ -574,39 +609,569 @@ struct CellArgs {
   cudaStream_t stream;
 };
 
-template <typename W, int RT, bool MULTI>
+template <int RT, bool MULTI>
 void launch_cell_kernel(const CellArgs& a) {
   const size_t smem = sizeof(float) * (size_t)RT * (2 * a.H + a.E + a.F + a.R);
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(cell_step_kernel<W, RT, MULTI>,
+    cudaFuncSetAttribute(cell_step_kernel<RT, MULTI>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  cell_step_kernel<W, RT, MULTI><<<(a.rows + RT - 1) / RT, 256, smem, a.stream>>>(
-      (const W*)a.feats, (const W*)a.att1, (const float*)a.h, (const int*)a.tok,
-      (const int*)a.styles, a.t, (const W*)a.emb, (const W*)a.ua_w, (const float*)a.ua_b,
-      (const float*)a.va, (const W*)a.wih, (const W*)a.whh, (const float*)a.bih,
-      (const float*)a.bhh, (float*)a.h_new, (const int*)a.live, a.rows, a.rows_per_image,
-      a.zero_word_t0, a.R, a.F, a.E, a.H, a.S);
+  cell_step_kernel<RT, MULTI><<<(a.rows + RT - 1) / RT, 256, smem, a.stream>>>(
+      (const float*)a.feats, (const float*)a.att1, (const float*)a.h, (const int*)a.tok,
+      (const int*)a.styles, a.t, (const float*)a.emb, (const float*)a.ua_w,
+      (const float*)a.ua_b, (const float*)a.va, (const float*)a.wih, (const float*)a.whh,
+      (const float*)a.bih, (const float*)a.bhh, (float*)a.h_new, (const int*)a.live, a.rows,
+      a.rows_per_image, a.zero_word_t0, a.R, a.F, a.E, a.H, a.S);
 }
 
-template <typename W, int RT>
+template <int RT>
 void launch_cell(const CellArgs& a) {
   if (a.S > 1)
-    launch_cell_kernel<W, RT, true>(a);
+    launch_cell_kernel<RT, true>(a);
   else
-    launch_cell_kernel<W, RT, false>(a);
+    launch_cell_kernel<RT, false>(a);
 }
 
-template <typename W>
-int cell_entry(const CellArgs& a, int block_rows) {
+int cell_entry_f32(const CellArgs& a, int block_rows) {
   if (a.rows_per_image < 1) return (int)cudaErrorInvalidValue;
   switch (block_rows) {
-    case 3: launch_cell<W, 3>(a); break;
-    case 6: launch_cell<W, 6>(a); break;
-    case 12: launch_cell<W, 12>(a); break;
+    case 3: launch_cell<3>(a); break;
+    case 6: launch_cell<6>(a); break;
+    case 12: launch_cell<12>(a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------- (a), bf16 weights
+// Two launches behind one C entry (see the note at the head of this file):
+//   attend  one block per `block_rows` rows: the word, U_a h on the tensor
+//           cores, the scores, the softmax and the context, per image;
+//           writes x = [word, ctx] in f32.
+//   gates   one block per (row tile, group of hidden units): [x | h] split
+//           into three bf16 terms in shared memory, the gate products on the
+//           tensor cores (mma.sync m16n8k16) with the packed theta's
+//           fragments read from L2 into registers, once for each style
+//           present in the tile, then the GRU from the accumulators.
+//
+// The mma.sync fragments (lane l, g = l / 4, q = l % 4): A (16 x 16, row
+// major) holds a0 = (row g, k 2q, 2q+1), a1 = (row g+8, k 2q..), a2 = (row
+// g, k 2q+8..), a3 = (row g+8, k 2q+8..); B (16 x 8) b0 = (k 2q, 2q+1; n g),
+// b1 = (k 2q+8, 2q+9; n g); C c0, c1 = (row g, n 2q, 2q+1), c2, c3 = (row
+// g+8, ..).  Shared memory holds A "fragment-native": the 16 bytes of
+// lane l's fragment at lane l's slot of a 512-byte record per (m16 tile,
+// k16 tile, term), so a warp reads a fragment in one conflict-free load.
+// The packed theta (decode_kernel.pack_gate_theta) holds B the same way in
+// device memory: per (style, unit group, k16 tile, gate) 256 bytes, lane l's
+// 8 at 8 l.
+namespace cell {
+
+constexpr int kThreads = 256, kWarps = 8;
+constexpr int kUnits = 8;    // hidden units of a column group: its r, z and n columns are n8 tiles
+constexpr int kBatch = 4;    // k16 tiles whose B fragments are loaded together
+constexpr int kUaBatch = 2;  // k16 tiles of U_a's fragments loaded together
+constexpr int kMaxH = 256;   // a lane keeps 8 of an att1 row's depths in registers
+constexpr int kMaxStyles = 32;
+
+__host__ __device__ constexpr int ktiles(int n) { return (n + 15) / 16; }
+__host__ __device__ constexpr int groups(int H) { return (H + kUnits - 1) / kUnits; }
+
+// d += a . b on the tensor cores, bf16 in, f32 accumulators (not volatile:
+// the compiler may interleave the products with the loads of the next ones)
+__device__ __forceinline__ void mma(float (&d)[4], const uint4& a, const uint2& b) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
+}
+
+// f32 (v0, v1) at depths k, k + 1 (k even) of row r -> the bf16x2 words of
+// its three terms, stored in the fragment-native A at (row r, k16 tile kt,
+// pair p = (k % 16) / 2); a term's record is 128 words after the one before.
+__device__ __forceinline__ void put_pair(uint32_t* a, int KT, int r, int kt, int p, float v0,
+                                         float v1) {
+  unsigned t0[3], t1[3];
+  vocab::split3(v0, t0);
+  vocab::split3(v1, t1);
+  const int rr = r & 15, lane = (rr & 7) * 4 + (p & 3), reg = (rr >> 3) + 2 * (p >> 2);
+  uint32_t* w = a + ((size_t)(r >> 4) * KT + kt) * 3 * 128 + lane * 4 + reg;
+#pragma unroll
+  for (int t = 0; t < 3; ++t) w[t * 128] = t0[t] | (t1[t] << 16);
+}
+
+// the three terms' words of a pair of zeros, as put_pair
+__device__ __forceinline__ void put_zero(uint32_t* a, int KT, int r, int kt, int p) {
+  const int rr = r & 15, lane = (rr & 7) * 4 + (p & 3), reg = (rr >> 3) + 2 * (p >> 2);
+  uint32_t* w = a + ((size_t)(r >> 4) * KT + kt) * 3 * 128 + lane * 4 + reg;
+  w[0] = w[128] = w[256] = 0u;
+}
+
+// h's terms for U_a, h, U_a h, x and the scores
+template <int RT>
+__host__ __device__ constexpr int attend_smem(int H, int R, int In) {
+  return ktiles(H) * 3 * 512 + (int)sizeof(float) * RT * (2 * H + In + R);
+}
+
+// Rows r0 .. r0 + RT - 1: x = [word, ctx] (f32, in shared memory), then
+// [x | h] split into three bf16 terms, written to `apk` ([rows][3][KT * 16]
+// bf16, zero past In and H) for the gate phase.  The block's images read
+// their att1 and feats once, for all their rows.  At most 64 registers, so
+// that four blocks share an SM: the scores' tanhf and the loads of att1 and
+// feats need the warps.
+template <int RT>
+__global__ void __launch_bounds__(kThreads, 4) attend_kernel(
+    const __nv_bfloat16* __restrict__ feats, const __nv_bfloat16* __restrict__ att1,
+    const float* __restrict__ h, const int* __restrict__ tok, int t,
+    const __nv_bfloat16* __restrict__ emb, const uint2* __restrict__ ua_pk,
+    const float* __restrict__ ua_b, const float* __restrict__ va, uint32_t* __restrict__ apk,
+    const int* __restrict__ live, int rows, int rpi, int zero_word_t0, int R, int F, int E,
+    int H, int skip) {
+  if (!step_runs(live)) return;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int KTh = ktiles(H), In = E + F, KTx = ktiles(In), KT = KTx + KTh, U = groups(H);
+  uint32_t* sa = reinterpret_cast<uint32_t*>(smem_raw);  // [KTh][3][128]: h's terms, rows 0..15
+  float* sh = reinterpret_cast<float*>(sa + KTh * 3 * 128);  // [RT][H] h
+  float* sa2 = sh + RT * H;                                  // [RT][H] U_a h + b
+  float* sx = sa2 + RT * H;                                  // [RT][In] x
+  float* sw = sx + RT * In;                                  // [RT][R] scores -> weights
+  const int r0 = blockIdx.x * RT, nr = min(RT, rows - r0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = r0 / rpi, ni = (r0 + nr - 1) / rpi - i0 + 1;
+
+#pragma unroll 4
+  for (int e = tid; e < RT * H; e += kThreads) {
+    const int r = e / H;
+    sh[e] = r < nr ? h[(size_t)(r0 + r) * H + e - r * H] : 0.f;
+  }
+  for (int e = tid; e < nr * E; e += kThreads) {
+    const int r = e / E, j = e - r * E;
+    sx[r * In + j] = t > 0 || !zero_word_t0 ? to_f(emb[(size_t)tok[r0 + r] * E + j]) : 0.f;
+  }
+  __syncthreads();
+  for (int e = tid; e < 16 * KTh * 8; e += kThreads) {  // h's three terms for U_a
+    const int r = e / (KTh * 8), rem = e - r * KTh * 8, kt = rem >> 3;
+    const int k = kt * 16 + 2 * (rem & 7);
+    if (r < nr)
+      put_pair(sa, KTh, r, kt, rem & 7, k < H ? sh[r * H + k] : 0.f,
+               k + 1 < H ? sh[r * H + k + 1] : 0.f);
+    else
+      put_zero(sa, KTh, r, kt, rem & 7);
+  }
+  __syncthreads();
+
+  {  // att2 = U_a h + b: warp w takes the column groups w, w + 8, ...
+    constexpr int kG = (kMaxH / kUnits + kWarps - 1) / kWarps;
+    const uint4* a4 = reinterpret_cast<const uint4*>(sa);
+    float acc[kG][4];
+#pragma unroll
+    for (int i = 0; i < kG; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int kt0 = 0; kt0 < ((skip & 1) ? 0 : KTh); kt0 += kUaBatch) {
+      uint2 b[kUaBatch][kG];
+#pragma unroll
+      for (int d = 0; d < kUaBatch; ++d)
+#pragma unroll
+        for (int i = 0; i < kG; ++i) {
+          const int u = warp + kWarps * i, kt = kt0 + d;
+          b[d][i] = u < U && kt < KTh ? __ldg(ua_pk + ((size_t)u * KTh + kt) * 32 + lane)
+                                      : make_uint2(0u, 0u);
+        }
+#pragma unroll
+      for (int d = 0; d < kUaBatch; ++d) {
+        if (kt0 + d >= KTh) break;
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          const uint4 a = a4[((kt0 + d) * 3 + term) * 32 + lane];
+#pragma unroll
+          for (int i = 0; i < kG; ++i)
+            if (warp + kWarps * i < U) mma(acc[i], a, b[d][i]);
+        }
+      }
+    }
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int i = 0; i < kG; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = g + 8 * (c >> 1), j = (warp + kWarps * i) * kUnits + 2 * q + (c & 1);
+        if (r < nr && j < H) sa2[r * H + j] = acc[i][c] + ua_b[j];
+      }
+  }
+  __syncthreads();
+
+  // scores: a warp per (image, region); the lane's depths j = lane + 32 i
+  constexpr int kJ = kMaxH / 32;
+  const int nj = (H + 31) / 32;
+  float vr[kJ];
+#pragma unroll
+  for (int i = 0; i < kJ; ++i)
+    vr[i] = i < nj && lane + 32 * i < H ? va[lane + 32 * i] : 0.f;
+  for (int p = warp; p < ((skip & 2) ? 0 : ni * R); p += kWarps) {
+    const int il = p / R, img = i0 + il, rho = p - il * R;
+    const __nv_bfloat16* a1 = att1 + ((size_t)img * R + rho) * H;
+    float av[kJ];
+#pragma unroll
+    for (int i = 0; i < kJ; ++i)
+      av[i] = i < nj && lane + 32 * i < H ? to_f(a1[lane + 32 * i]) : 0.f;
+    const int ra = max(r0, img * rpi) - r0, rb = min(r0 + nr, (img + 1) * rpi) - r0;
+    for (int r = ra; r < rb; ++r) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < kJ; ++i)
+        if (i < nj && lane + 32 * i < H) s += tanhf(av[i] + sa2[r * H + lane + 32 * i]) * vr[i];
+      s = warp_sum(s);
+      if (lane == 0) sw[r * R + rho] = s;
+    }
+  }
+  __syncthreads();
+
+  for (int r = warp; r < ((skip & 2) ? 0 : nr); r += kWarps) {  // softmax over regions
+    float m = -INFINITY;
+    for (int rho = lane; rho < R; rho += 32) m = fmaxf(m, sw[r * R + rho]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int rho = lane; rho < R; rho += 32) {
+      const float e = expf(sw[r * R + rho] - m);
+      sw[r * R + rho] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int rho = lane; rho < R; rho += 32) sw[r * R + rho] = sw[r * R + rho] / sum;
+  }
+  __syncthreads();
+
+  // context: a thread per (image, pair of features), up to 4 of the image's
+  // rows a pass
+  const int F2 = (F + 1) / 2;
+  for (int e = tid; e < ni * F2; e += kThreads) {
+    const int il = e / F2, f = 2 * (e - il * F2), img = i0 + il;
+    const int ra = max(r0, img * rpi) - r0, rb = min(r0 + nr, (img + 1) * rpi) - r0;
+    const __nv_bfloat16* fp = feats + (size_t)img * R * F + f;
+    const bool two = f + 1 < F;
+    for (int rc = ra; rc < rb; rc += 4) {
+      float c[4][2] = {};
+#pragma unroll 7
+      for (int rho = 0; rho < ((skip & 4) ? 0 : R); ++rho) {
+        const float v0 = to_f(fp[(size_t)rho * F]);
+        const float v1 = two ? to_f(fp[(size_t)rho * F + 1]) : 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (rc + k < rb) {
+            const float w = sw[(rc + k) * R + rho];
+            c[k][0] += w * v0;
+            c[k][1] += w * v1;
+          }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (rc + k < rb) {
+          sx[(rc + k) * In + E + f] = c[k][0];
+          if (two) sx[(rc + k) * In + E + f + 1] = c[k][1];
+        }
+    }
+  }
+  __syncthreads();
+
+  // [x | h] of the block's rows split, each term's bf16x2 words in a row of apk
+  for (int e = tid; e < nr * KT * 8; e += kThreads) {
+    const int r = e / (KT * 8), p = e - r * KT * 8;
+    const bool xs = p < KTx * 8;
+    const int k = (xs ? p : p - KTx * 8) * 2, n = xs ? In : H;
+    const float* src = xs ? sx + r * In : sh + r * H;
+    unsigned t0[3], t1[3];
+    vocab::split3(k < n ? src[k] : 0.f, t0);
+    vocab::split3(k + 1 < n ? src[k + 1] : 0.f, t1);
+    uint32_t* dst = apk + (size_t)(r0 + r) * 3 * KT * 8 + p;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) dst[q * KT * 8] = t0[q] | (t1[q] << 16);
+  }
+}
+
+// The k16 tiles kb .. ke - 1 of the products of NG unit groups (the first
+// nv of them real) for one style: gates r and z into acc[.][.][0], [1],
+// gate n into acc[.][.][NQ] (2: x's part, gi_n; 3: h's part, gh_n).  A's
+// fragments come from the row-major terms in shared memory by ldmatrix
+// (`a_lane`: this lane's row and column block of term 0, m16 tile 0, k16
+// tile 0; `term_bytes`, `m_bytes` the strides), each used for the NG
+// groups' three gates.  keep: bit 2m (row g of m16 tile m) and 2m + 1 (row
+// g + 8) are set when the lane's row has this style; the others' A is zero,
+// and adds exact zeros.  B's fragments (wb: the first group's, the next
+// group's `wstride` uint2 on) for the next kBatch / NG tiles load during
+// this batch's products.
+template <int MT, int NG, int NQ>
+__device__ __forceinline__ void gate_part(float (&acc)[NG][MT][4][4], uint32_t a_lane,
+                                          int term_bytes, int m_bytes,
+                                          const uint2* __restrict__ wb, size_t wstride, int nv,
+                                          int lane, unsigned keep, int kb, int ke) {
+  constexpr int kB = kBatch / NG;
+  uint2 b[kB][NG][3], nb[kB][NG][3];
+  auto load = [&](uint2(&dst)[kB][NG][3], int kt0) {
+#pragma unroll
+    for (int d = 0; d < kB; ++d)
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          dst[d][n][q] = kt0 + d < ke && n < nv
+                             ? __ldg(wb + n * wstride + ((kt0 + d) * 3 + q) * 32 + lane)
+                             : make_uint2(0u, 0u);
+  };
+  load(b, kb);
+  for (int kt0 = kb; kt0 < ke; kt0 += kB) {
+    load(nb, kt0 + kB);
+#pragma unroll
+    for (int d = 0; d < kB; ++d) {
+      if (kt0 + d >= ke) break;
+      uint4 a[MT][3];  // every fragment of this k16 tile, loaded back to back
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int term = 0; term < 3; ++term)
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(a[m][term].x), "=r"(a[m][term].y), "=r"(a[m][term].z),
+                         "=r"(a[m][term].w)
+                       : "r"(a_lane + term * term_bytes + m * m_bytes + (kt0 + d) * 32));
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          uint4 f = a[m][term];
+          if (!(keep >> (2 * m) & 1u)) f.x = f.z = 0u;
+          if (!(keep >> (2 * m + 1) & 1u)) f.y = f.w = 0u;
+#pragma unroll
+          for (int n = 0; n < NG; ++n) {
+            mma(acc[n][m][0], f, b[d][n][0]);
+            mma(acc[n][m][1], f, b[d][n][1]);
+            mma(acc[n][m][NQ], f, b[d][n][2]);
+          }
+        }
+    }
+#pragma unroll
+    for (int d = 0; d < kB; ++d)
+#pragma unroll
+      for (int n = 0; n < NG; ++n)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) b[d][n][q] = nb[d][n][q];
+  }
+}
+
+// A's shared memory: per term 16 MT rows of KT * 16 bf16 and 8 of padding
+// (a row stride of 16 mod 128 bytes keeps ldmatrix free of bank conflicts)
+__host__ __device__ constexpr int gates_row_bytes(int KT) { return (KT * 16 + 8) * 2; }
+
+// A, the sums of the parts of the depths (NG = 1), the tile's styles
+__host__ __device__ constexpr int gates_smem(int MT, int NG, int In, int H) {
+  return 3 * 16 * MT * gates_row_bytes(ktiles(In) + ktiles(H)) +
+         (NG == 1 ? kWarps * MT * 16 * 32 * (int)sizeof(float) : 0) +
+         16 * MT * (int)sizeof(int);
+}
+
+// h_new of rows row0 .. row0 + 16 MT - 1 and hidden units of the block's
+// `gb` groups (fewer in the last column of blocks when gb does not divide
+// the groups).  A warp takes NG groups at once.  With NG = 1 the 8 warps
+// take (group, part of the depths), 8 / n parts a group for the block's n
+// groups rounded up to a power of 2, the parts summed in shared memory in
+// their order; with NG = 2 (gb = 16) a warp takes a pair of groups and all
+// the depths.  `apk` holds [x | h] split (attend_kernel) for rows up to the
+// grid's last row tile; a row past `rows` holds anything and is masked.
+template <int MT, int NG>
+__global__ void __launch_bounds__(kThreads) gates_kernel(
+    const uint32_t* __restrict__ apk, const float* __restrict__ h,
+    const int* __restrict__ styles, const uint2* __restrict__ wpk,
+    const float* __restrict__ bih, const float* __restrict__ bhh, float* __restrict__ h_new,
+    const int* __restrict__ live, int rows, int rpi, int In, int H, int S, int gb, int skip) {
+  if (!step_runs(live)) return;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned present;
+  const int KTx = ktiles(In), KT = KTx + ktiles(H), U = groups(H);
+  const int n = min(gb, U - (int)blockIdx.x * gb), items = (n + NG - 1) / NG;
+  const int ks = NG > 1 ? 1 : items == 1 ? 8 : items == 2 ? 4 : items <= 4 ? 2 : 1;
+  const int row_bytes = gates_row_bytes(KT), term_bytes = 16 * MT * row_bytes;
+  float* red = reinterpret_cast<float*>(smem_raw + 3 * term_bytes);  // [8][MT][16][32], NG = 1
+  int* srow = reinterpret_cast<int*>(red + (NG == 1 ? kWarps * MT * 16 * 32 : 0));  // [16 MT]
+  const int row0 = blockIdx.y * 16 * MT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t sA = hopper::smem_addr(smem_raw);
+
+  {  // A: the tile's rows of the split [x | h], 16-byte copies into padded rows
+    const int chunks = KT * 2;  // 16 bytes: 8 depths of a term's row
+    const uint32_t* src = apk + (size_t)row0 * 3 * KT * 8;
+    for (int c = tid; c < ((skip & 8) ? 0 : 16 * MT * 3 * chunks); c += kThreads) {
+      const int rt = c / chunks, j = c - rt * chunks, r = rt / 3, term = rt - r * 3;
+      hopper::cp_async16(sA + term * term_bytes + r * row_bytes + 16 * j, src + 4 * c, true);
+    }
+    hopper::cp_async_commit();
+  }
+  if (tid == 0) present = 0u;
+  __syncthreads();
+  for (int r = tid; r < 16 * MT; r += kThreads) {
+    const int row = row0 + r;
+    int s = -1;
+    if (row < rows) {
+      s = min(max(styles[row / rpi], 0), S - 1);
+      atomicOr(&present, 1u << s);
+    }
+    srow[r] = s;
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+
+  const int item = warp / ks, part = warp % ks;
+  const int u = item < items ? blockIdx.x * gb + item * NG : U;  // the warp's first group
+  const int nv = min(NG, n - item * NG);                           // its groups that are real
+  const int g = lane >> 2, q = lane & 3;
+  float acc[NG][MT][4][4];
+#pragma unroll
+  for (int k = 0; k < NG; ++k)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[k][m][i][c] = 0.f;
+  if (u < U) {  // uniform across the warp
+    const int kb = part * KT / ks, ke = (part + 1) * KT / ks;
+    const uint32_t a_lane = sA + (lane & 15) * row_bytes + (lane >> 4) * 16;
+    const size_t wstride = (size_t)KT * 3 * 32;  // uint2 of a group's packed theta
+    for (unsigned mask = present; mask; mask &= mask - 1) {  // each style present, in order
+      const int s = __ffs(mask) - 1;
+      unsigned keep = 0u;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        keep |= (unsigned)(srow[m * 16 + g] == s) << (2 * m);
+        keep |= (unsigned)(srow[m * 16 + g + 8] == s) << (2 * m + 1);
+      }
+      const uint2* wb = wpk + ((size_t)s * U + u) * wstride;
+      gate_part<MT, NG, 2>(acc, a_lane, term_bytes, 16 * row_bytes, wb, wstride, nv, lane, keep,
+                           kb, min(ke, KTx));
+      gate_part<MT, NG, 3>(acc, a_lane, term_bytes, 16 * row_bytes, wb, wstride, nv, lane, keep,
+                           max(kb, KTx), ke);
+    }
+  }
+  if (NG == 1 && ks > 1) {  // uniform across the block
+    float* mine = red + warp * MT * 16 * 32;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mine[((m * 4 + i) * 4 + c) * 32 + lane] = acc[0][m][i][c];
+    __syncthreads();
+    if (part != 0) return;
+    for (int o = 1; o < ks; ++o) {
+      const float* other = red + (warp + o) * MT * 16 * 32;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[0][m][i][c] += other[((m * 4 + i) * 4 + c) * 32 + lane];
+    }
+  }
+  if (u >= U) return;
+
+  const int G = 3 * H;
+#pragma unroll
+  for (int k = 0; k < NG; ++k)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = m * 16 + g + 8 * (c >> 1), row = row0 + r;
+        const int j = (u + k) * kUnits + 2 * q + (c & 1);
+        if (k >= nv || row >= rows || j >= H) continue;
+        const float* bi = bih + (size_t)srow[r] * G;
+        const float* bh = bhh + (size_t)srow[r] * G;
+        const float rg = sigmoidf(acc[k][m][0][c] + (bi[j] + bh[j]));
+        const float zg = sigmoidf(acc[k][m][1][c] + (bi[H + j] + bh[H + j]));
+        const float ng =
+            tanhf((acc[k][m][2][c] + bi[2 * H + j]) + rg * (acc[k][m][3][c] + bh[2 * H + j]));
+        h_new[(size_t)row * H + j] = (1.f - zg) * ng + zg * h[(size_t)row * H + j];
+      }
+}
+
+struct Args {
+  const void *feats, *att1, *h, *tok, *styles;
+  int t;
+  const void *emb, *ua_pk, *ua_b, *va, *wpk, *bih, *bhh;
+  void *apk, *h_new;
+  const void* live;
+  int rows, rpi, zero_word_t0, R, F, E, H, S, gate_rows, gate_groups, phases;
+  cudaStream_t stream;
+};
+
+// Lets `kernel` take `bytes` of dynamic shared memory: above the default
+// 48 KB it sets the attribute once per device and size (`granted`: the
+// largest size set so far on each device, one array per kernel), since a
+// decode step's host time is part of what a decode costs.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, int bytes, int (&granted)[16]) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 16 && granted[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 16) granted[dev] = bytes;
+  return err;
+}
+
+template <int RT>
+int launch_attend(const Args& a) {
+  static int granted[16] = {};
+  const int smem = attend_smem<RT>(a.H, a.R, a.E + a.F);
+  const cudaError_t err = allow_smem(attend_kernel<RT>, smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  attend_kernel<RT><<<(a.rows + RT - 1) / RT, kThreads, smem, a.stream>>>(
+      (const __nv_bfloat16*)a.feats, (const __nv_bfloat16*)a.att1, (const float*)a.h,
+      (const int*)a.tok, a.t, (const __nv_bfloat16*)a.emb, (const uint2*)a.ua_pk,
+      (const float*)a.ua_b, (const float*)a.va, (uint32_t*)a.apk, (const int*)a.live, a.rows, a.rpi,
+      a.zero_word_t0, a.R, a.F, a.E, a.H, a.phases >> 2);
+  return (int)cudaGetLastError();
+}
+
+template <int MT, int NG>
+int launch_gates(const Args& a) {
+  static int granted[16] = {};
+  const int In = a.E + a.F, smem = gates_smem(MT, NG, In, a.H);
+  const cudaError_t err = allow_smem(gates_kernel<MT, NG>, smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((groups(a.H) + a.gate_groups - 1) / a.gate_groups,
+                  (a.rows + 16 * MT - 1) / (16 * MT));
+  gates_kernel<MT, NG><<<grid, kThreads, smem, a.stream>>>(
+      (const uint32_t*)a.apk, (const float*)a.h, (const int*)a.styles, (const uint2*)a.wpk,
+      (const float*)a.bih, (const float*)a.bhh, (float*)a.h_new, (const int*)a.live, a.rows,
+      a.rpi, In, a.H, a.S, a.gate_groups, a.phases >> 2);
+  return (int)cudaGetLastError();
+}
+
+int entry(const Args& a, int block_rows) {
+  const int gb = a.gate_groups;
+  if (a.rpi < 1 || a.rows < 1 || a.H < 1 || a.H > kMaxH || a.S < 1 || a.S > kMaxStyles ||
+      (gb != 1 && gb != 2 && gb != 4 && gb != 8 && gb != 16) ||
+      reinterpret_cast<uintptr_t>(a.ua_pk) % 8 || reinterpret_cast<uintptr_t>(a.wpk) % 8 ||
+      reinterpret_cast<uintptr_t>(a.apk) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (block_rows != 3 && block_rows != 6 && block_rows != 12) return (int)cudaErrorInvalidValue;
+  if (a.phases & 1) {
+    const int rc = block_rows == 3    ? launch_attend<3>(a)
+                   : block_rows == 6 ? launch_attend<6>(a)
+                                     : launch_attend<12>(a);
+    if (rc) return rc;
+  }
+  if (!(a.phases & 2)) return (int)cudaSuccess;
+  if (gb == 16)  // a warp takes a pair of groups
+    return a.gate_rows == 48 ? launch_gates<3, 2>(a) : (int)cudaErrorInvalidValue;
+  switch (a.gate_rows) {
+    case 16: return launch_gates<1, 1>(a);
+    case 32: return launch_gates<2, 1>(a);
+    case 48: return launch_gates<3, 1>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace cell
 
 template <typename W>
 int logits_entry(const void* h, const void* fc_w, const void* fc_b, void* pv, void* pi,
@@ -628,25 +1193,55 @@ const char* decode_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Cell step for rows of `rows_per_image` rows per image (3: beam, 1: greedy).
-#define CELL_PARAMS                                                                     \
-  const void *feats, const void *att1, const void *h, const void *tok,                 \
-      const void *styles, int t, const void *emb, const void *ua_w, const void *ua_b,  \
-      const void *va, const void *wih, const void *whh, const void *bih,               \
-      const void *bhh, void *h_new, const void *live, int rows, int rows_per_image,    \
-      int zero_word_t0, int R, int F, int E, int H, int S, int block_rows, void *stream
-#define CELL_ARGS                                                                      \
-  CellArgs{feats, att1, h, tok, styles, t, emb, ua_w, ua_b, va, wih, whh, bih, bhh,    \
-           h_new, live, rows, rows_per_image, zero_word_t0, R, F, E, H, S,              \
-           (cudaStream_t)stream},                                                      \
-      block_rows
+// Cell step for rows of `rows_per_image` rows per image (3: beam, 1: greedy);
+// f32 weights: one launch of the CUDA-core kernel, `block_rows` rows a block.
+int cell_step_f32(const void* feats, const void* att1, const void* h, const void* tok,
+                  const void* styles, int t, const void* emb, const void* ua_w,
+                  const void* ua_b, const void* va, const void* wih, const void* whh,
+                  const void* bih, const void* bhh, void* h_new, const void* live, int rows,
+                  int rows_per_image, int zero_word_t0, int R, int F, int E, int H, int S,
+                  int block_rows, void* stream) {
+  return cell_entry_f32(CellArgs{feats, att1, h, tok, styles, t, emb, ua_w, ua_b, va, wih,
+                                 whh, bih, bhh, h_new, live, rows, rows_per_image,
+                                 zero_word_t0, R, F, E, H, S, (cudaStream_t)stream},
+                        block_rows);
+}
 
-int cell_step_f32(CELL_PARAMS) { return cell_entry<float>(CELL_ARGS); }
+// bf16 weights: the attention phase (`block_rows` rows a block) writes
+// [x | h] split into three bf16 terms to `apk` ([rows][3][KT * 16] bf16,
+// KT = ceil(In / 16) + ceil(H / 16), rows up to the gate grid's last),
+// then the gate phase (`gate_rows` rows x `gate_groups` groups of 8 hidden
+// units a block; decode_kernel.gate_tile) reads it; ua_pk and wpk are the packed U_a and theta bank
+// (decode_kernel.pack_ua, pack_gate_theta).  phases: 3 runs both; 1 (the
+// attention) or 2 (the gates) runs one, to time it apart; adding 4, 8, 16
+// or 32 leaves out U_a h, the scores and softmax, the context, or the gate
+// phase's copy of [x | h], to time the parts (the result is then wrong).
+int cell_step_bf16(const void* feats, const void* att1, const void* h, const void* tok,
+                   const void* styles, int t, const void* emb, const void* ua_pk,
+                   const void* ua_b, const void* va, const void* wpk, const void* bih,
+                   const void* bhh, void* apk, void* h_new, const void* live, int rows,
+                   int rows_per_image, int zero_word_t0, int R, int F, int E, int H, int S,
+                   int block_rows, int gate_rows, int gate_groups, int phases,
+                   void* stream) {
+  return cell::entry(cell::Args{feats, att1, h, tok, styles, t, emb, ua_pk, ua_b, va, wpk, bih,
+                                bhh, apk, h_new, live, rows, rows_per_image, zero_word_t0, R, F,
+                                E, H, S, gate_rows, gate_groups, phases, (cudaStream_t)stream},
+                     block_rows);
+}
 
-int cell_step_bf16(CELL_PARAMS) { return cell_entry<__nv_bfloat16>(CELL_ARGS); }
+// the dynamic shared memory of the bf16 cell's two kernels (bytes)
+int cell_attend_smem(int block_rows, int H, int R, int In) {
+  switch (block_rows) {
+    case 3: return cell::attend_smem<3>(H, R, In);
+    case 6: return cell::attend_smem<6>(H, R, In);
+    case 12: return cell::attend_smem<12>(H, R, In);
+    default: return -1;
+  }
+}
 
-#undef CELL_PARAMS
-#undef CELL_ARGS
+int cell_gates_smem(int gate_rows, int gate_groups, int In, int H) {
+  return cell::gates_smem(gate_rows / 16, gate_groups == 16 ? 2 : 1, In, H);
+}
 
 int logits_top3_partial_f32(const void* h, const void* fc_w, const void* fc_b, void* pv,
                             void* pi, void* pm, void* ps, const void* live, int rows,

@@ -9,7 +9,12 @@ per step (``csrc/beam_decode.cu``, ``csrc/greedy_decode.cu``):
 
 - :func:`cell_step`            (a) embed, attention, GRU on the theta bank,
   shared by both decodes (3 rows per image and a zero word at t=0 for the
-  beam, 1 row per image and the embedding of token 0 for greedy);
+  beam, 1 row per image and the embedding of token 0 for greedy); with
+  bf16 weights two launches, an attention phase per image and a gate phase
+  on the tensor cores over (row tile, group of hidden units)
+  (:func:`gate_tile`), x and h split into three exact bf16 terms, the
+  theta packed once per decoder (:func:`pack_gate_theta`, :func:`pack_ua`)
+  and a bank taken once per style present in a tile;
 - :func:`logits_top3_partial`  (b) vocab product + per-chunk top-3 and
   logsumexp partials, never the whole row of logits; with bf16 weights
   the product runs on the tensor cores, h_new split into three exact bf16
@@ -53,6 +58,7 @@ import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as tnf
 
 from captionax_torch.core.runtime import DeviceLike, resolve_device
 from captionax_torch.decode.search import NEG_INF, BeamResult, top_k_first
@@ -63,9 +69,17 @@ from captionax_torch.ops._cuda import KernelOp
 
 K = 3            # beam width the kernels are written for
 CHUNK = 128      # vocab columns per partial of (b) and (b1)
-TILE_ROWS = (3, 6, 12)   # rows per block of (a) that the library instantiates
+TILE_ROWS = (3, 6, 12)   # rows per block of (a) (bf16: its attention phase) that the library builds
 TILE_IMAGES = (1, 2, 4)  # beam images per block of (a): 3, 6 or 12 rows
+# the beam decoders' default images per block of (a), by weight dtype: the
+# fastest tile at B=1024 on the H100 (PERF.md)
+BEAM_BLOCK_IMAGES = {torch.bfloat16: 2, torch.float32: 4}
 GREEDY_BLOCK_ROWS = 3    # rows per block of (a) for greedy: the fastest tile (PERF.md)
+GATE_UNITS = 8           # hidden units of a group of the packed theta (r, z, n side by side)
+# (rows, column groups) a block of the bf16 gate phase can take, largest first
+GATE_TILES = ((48, 16), (48, 8), (32, 8), (32, 4), (16, 4), (16, 2), (16, 1))
+CELL_MAX_H = 256         # the widest h of the bf16 cell (a lane keeps 8 depths of an att1 row)
+CELL_MAX_STYLES = 32     # the bf16 cell marks the styles present in a tile in one 32-bit word
 VOCAB_ROWS = 128         # rows per block of the bf16 (b) and (b1): two warpgroups
 VOCAB_MAX_H = 256        # the widest h whose three bf16 terms fit in shared memory
 
@@ -91,6 +105,8 @@ def _ptr(t: torch.Tensor) -> int:
 
 def _check(t: torch.Tensor, name: str, dev: torch.device, dtype, shape) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``dev``."""
+    if t.device == dev and t.dtype == dtype and t.shape == shape and t.is_contiguous():
+        return
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
     if t.dtype != dtype:
@@ -117,6 +133,35 @@ def vocab_items_per_block(rows: int, n_chunks: int, sms: int) -> int:
     reuses it for all its chunks of that tile."""
     items = -(-rows // VOCAB_ROWS) * n_chunks
     return max(1, -(-items // sms))
+
+
+def gate_blocks(rows: int, H: int, tile: Tuple[int, int]) -> int:
+    """Blocks of the bf16 cell's gate phase at ``tile`` = (rows, groups of
+    GATE_UNITS hidden units) a block."""
+    mb, gb = tile
+    groups = -(-H // GATE_UNITS)
+    return -(-rows // mb) * -(-groups // gb)
+
+
+@functools.lru_cache(maxsize=256)
+def gate_tile(rows: int, H: int, sms: int) -> Tuple[int, int]:
+    """The tile (rows, groups of GATE_UNITS hidden units) of a block of the
+    bf16 cell's gate phase: the first of GATE_TILES (largest first) whose
+    grid fills at least 95% of one wave of ``sms`` blocks, so that the
+    products fill the card; the finest when none does (then every block
+    runs in one wave).  A block holds its rows' split [x | h] in shared
+    memory (one block an SM for 32 and 48 rows); its 8 warps take (group,
+    part of the depths), 8 / groups parts a group, or at 16 groups a pair of
+    groups each, which reads each fragment of [x | h] once for both.  A
+    larger tile reads the packed theta fewer times (once per row tile) and
+    [x | h] fewer times (once per block of groups).  95% and not 100%: at
+    1024 rows (32, 8) makes 128 blocks and ran faster than (32, 4) with 224
+    on the H100, and at 3072 rows (48, 16) with 128 faster than (48, 8) with
+    256 (PERF.md)."""
+    for tile in GATE_TILES:
+        if gate_blocks(rows, H, tile) * 20 >= sms * 19:
+            return tile
+    return GATE_TILES[-1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,11 +207,54 @@ def _new_run(steps: int, dev: torch.device) -> torch.Tensor:
 # ====================================================================
 # weights and features
 # ====================================================================
+def _fragments(w: torch.Tensor) -> torch.Tensor:
+    """[..., K, N] (N a multiple of 8) -> mma.sync B fragments [..., KT, N/8,
+    32, 4], K padded with zeros to KT * 16: lane l (g = l // 4, q = l % 4)
+    of k16 tile kt and n8 tile c holds depths 16 kt + (2q, 2q+1, 2q+8, 2q+9)
+    of column 8c + g, the two words of its fragment."""
+    *lead, K, N = w.shape
+    kt = -(-K // 16)
+    w = tnf.pad(w, (0, 0, 0, kt * 16 - K)).reshape(*lead, kt, 16, N // 8, 8).transpose(-3, -2)
+    lane = torch.arange(32, device=w.device)
+    q, g = lane % 4, lane // 4
+    k = torch.stack([2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9], dim=1)
+    return w[..., k, g[:, None]]
+
+
+def pack_gate_theta(wih_t: torch.Tensor, whh_t: torch.Tensor) -> torch.Tensor:
+    """The theta bank ``wih_t`` [S, In, 3H], ``whh_t`` [S, H, 3H] in the bf16
+    gate phase's layout [S, U, KT, 3, 32, 4] (U = ceil(H / 8) groups of
+    hidden units, KT = ceil(In / 16) + ceil(H / 16) k16 tiles: x's, then
+    h's): per (style, group u, k16 tile, gate r/z/n) the mma.sync fragments
+    of columns gate * H + 8u .. + 7 (:func:`_fragments`), so that a block's
+    accumulators hold the r, z and n of the same hidden units.  Units past
+    H and depths past In or H are zero."""
+    def part(w):
+        S, K, G = w.shape
+        H = G // 3
+        U = -(-H // GATE_UNITS)
+        w = tnf.pad(w.reshape(S, K, 3, H), (0, U * GATE_UNITS - H)).permute(0, 2, 1, 3)
+        return _fragments(w)  # [S, 3, KT, U, 32, 4]
+
+    pk = torch.cat([part(wih_t), part(whh_t)], dim=2)
+    return pk.permute(0, 3, 2, 1, 4, 5).contiguous()
+
+
+def pack_ua(ua_w: torch.Tensor) -> torch.Tensor:
+    """U_a [H, H] as mma.sync B fragments [U, KTh, 32, 4] (column groups of
+    8, k16 tiles of h; zeros past H)."""
+    H = ua_w.shape[1]
+    U = -(-H // GATE_UNITS)
+    w = tnf.pad(ua_w, (0, U * GATE_UNITS - H))
+    return _fragments(w).permute(1, 0, 2, 3).contiguous()
+
+
 def _pack_weights(decoder_params: Dict, gru_params: Optional[Dict],
                   weight_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
     """Decoder params -> kernel operands, V padded to a multiple of 128 with
     a -1e9 bias.  The theta is stored as a bank of one: ``wih_t`` [1, In, 3H],
-    ``whh_t`` [1, H, 3H], biases [1, 3H] in f32."""
+    ``whh_t`` [1, H, 3H], biases [1, 3H] in f32.  bf16 weights also get
+    their copies in the bf16 cell's layout, ``ua_pk`` and ``gates_pk``."""
     theta = gru_params if gru_params is not None else decoder_params["gru"]
     emb = decoder_params["embed"]
     V, E = emb.shape
@@ -181,7 +269,7 @@ def _pack_weights(decoder_params: Dict, gru_params: Optional[Dict],
     fcb_p = torch.full((vp,), NEG_INF, dtype=torch.float32, device=dev)
     fcb_p[:V] = decoder_params["fc"]["b"].float()
     att = decoder_params["attention"]
-    return {
+    w = {
         "emb": emb_p,
         "ua_w": att["U_a"]["w"].to(weight_dtype).contiguous(),
         "ua_b": att["U_a"]["b"].float().contiguous(),
@@ -193,6 +281,10 @@ def _pack_weights(decoder_params: Dict, gru_params: Optional[Dict],
         "fc_w": fcw_p,
         "fc_b": fcb_p,
     }
+    if weight_dtype == torch.bfloat16:
+        w["ua_pk"] = pack_ua(w["ua_w"])
+        w["gates_pk"] = pack_gate_theta(w["wih_t"], w["whh_t"])
+    return w
 
 
 def _pack_weight_bank(weights: Dict, thetas: Dict,
@@ -204,6 +296,8 @@ def _pack_weight_bank(weights: Dict, thetas: Dict,
     weights["whh_t"] = thetas["w_hh"].transpose(1, 2).to(weight_dtype).contiguous()
     weights["bih"] = thetas["b_ih"].float().contiguous()
     weights["bhh"] = thetas["b_hh"].float().contiguous()
+    if weight_dtype == torch.bfloat16:
+        weights["gates_pk"] = pack_gate_theta(weights["wih_t"], weights["whh_t"])
     return weights
 
 
@@ -258,11 +352,13 @@ def cell_step_plain(feats, att1, h, tok, styles, t: int, w: Dict[str, torch.Tens
 def cell_step(feats, att1, h, tok, styles, t: int, w: Dict[str, torch.Tensor],
               zero_word_t0: bool = True, live: Optional[torch.Tensor] = None,
               block_rows: int = 12) -> torch.Tensor:
-    """(a) for all rows; the CUDA kernel on the card, the plain version for
+    """(a) for all rows; the CUDA kernels on the card, the plain version for
     CPU tensors.  ``feats`` [B, R, F] and ``att1`` [B, R, H] are per image in
     the weight dtype, ``styles`` [B] int32 (clamped here); ``h`` has a whole
     number of rows per image.  ``live`` gates the step (see the module
-    note); ``block_rows`` is the rows per block (one of ``TILE_ROWS``)."""
+    note); ``block_rows`` (one of ``TILE_ROWS``) is the rows per block of
+    the f32 kernel and of the bf16 cell's attention phase, whose gate phase
+    takes its tile from :func:`gate_tile`."""
     if block_rows not in TILE_ROWS:
         raise ValueError(f"block_rows must be one of {TILE_ROWS}")
     if h.device.type == "cpu":
@@ -277,28 +373,52 @@ def cell_step(feats, att1, h, tok, styles, t: int, w: Dict[str, torch.Tensor],
     E = w["emb"].shape[1]
     if B == 0 or rows % B or In != E + F or G != 3 * H:
         raise ValueError("inconsistent shapes for cell_step")
-    for name, x, dt, shape in (
+    checks = [
         ("feats", feats, wdt, (B, R, F)), ("att1", att1, wdt, (B, R, H)),
         ("h", h, torch.float32, (rows, H)), ("tok", tok, torch.int32, (rows,)),
         ("styles", styles, torch.int32, (B,)),
         ("emb", w["emb"], wdt, (w["emb"].shape[0], E)),
-        ("ua_w", w["ua_w"], wdt, (H, H)), ("ua_b", w["ua_b"], torch.float32, (H,)),
-        ("va", w["va"], torch.float32, (H,)),
-        ("wih_t", w["wih_t"], wdt, (S, In, G)), ("whh_t", w["whh_t"], wdt, (S, H, G)),
+        ("ua_b", w["ua_b"], torch.float32, (H,)), ("va", w["va"], torch.float32, (H,)),
         ("bih", w["bih"], torch.float32, (S, G)), ("bhh", w["bhh"], torch.float32, (S, G)),
-    ):
+    ]
+    if wdt == torch.float32:
+        checks += [("ua_w", w["ua_w"], wdt, (H, H)), ("wih_t", w["wih_t"], wdt, (S, In, G)),
+                   ("whh_t", w["whh_t"], wdt, (S, H, G))]
+    else:
+        if H > CELL_MAX_H or S > CELL_MAX_STYLES:
+            raise ValueError(f"h width {H} > {CELL_MAX_H} or {S} > {CELL_MAX_STYLES} styles: "
+                             "no bf16 cell kernel")
+        U, KTh = -(-H // GATE_UNITS), -(-H // 16)
+        checks += [("ua_pk", w["ua_pk"], wdt, (U, KTh, 32, 4)),
+                   ("gates_pk", w["gates_pk"], wdt, (S, U, -(-In // 16) + KTh, 3, 32, 4))]
+    for name, x, dt, shape in checks:
         _check(x, name, dev, dt, shape)
     gate = _check_live(live, dev, 1)
     h_new = torch.empty_like(h)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        CELL.launch(
-            f"cell_step_{_SUFFIX[wdt]}",
-            _ptr(feats), _ptr(att1), _ptr(h), _ptr(tok), _ptr(styles), t,
-            _ptr(w["emb"]), _ptr(w["ua_w"]), _ptr(w["ua_b"]), _ptr(w["va"]),
-            _ptr(w["wih_t"]), _ptr(w["whh_t"]), _ptr(w["bih"]), _ptr(w["bhh"]),
-            _ptr(h_new), gate, rows, rows // B, int(zero_word_t0), R, F, E, H, S,
-            block_rows, torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if wdt == torch.float32:
+            CELL.launch(
+                "cell_step_f32",
+                _ptr(feats), _ptr(att1), _ptr(h), _ptr(tok), _ptr(styles), t,
+                _ptr(w["emb"]), _ptr(w["ua_w"]), _ptr(w["ua_b"]), _ptr(w["va"]),
+                _ptr(w["wih_t"]), _ptr(w["whh_t"]), _ptr(w["bih"]), _ptr(w["bhh"]),
+                _ptr(h_new), gate, rows, rows // B, int(zero_word_t0), R, F, E, H, S,
+                block_rows, stream,
+            )
+        else:
+            mb, gb = gate_tile(rows, H, _sms(dev))
+            # [x | h] split into three bf16 terms, rows up to the gate grid's last
+            apk = torch.empty((-(-rows // mb) * mb, 3, (-(-In // 16) + KTh) * 16),
+                              dtype=torch.bfloat16, device=dev)
+            CELL.launch(
+                "cell_step_bf16",
+                _ptr(feats), _ptr(att1), _ptr(h), _ptr(tok), _ptr(styles), t,
+                _ptr(w["emb"]), _ptr(w["ua_pk"]), _ptr(w["ua_b"]), _ptr(w["va"]),
+                _ptr(w["gates_pk"]), _ptr(w["bih"]), _ptr(w["bhh"]), _ptr(apk), _ptr(h_new),
+                gate, rows, rows // B, int(zero_word_t0), R, F, E, H, S, block_rows, mb, gb, 3,
+                stream,
+            )
     return h_new
 
 
@@ -653,10 +773,12 @@ class BeamDecoder(_PackedDecoder):
 
     def __init__(self, decoder_params: Dict, gru_params: Optional[Dict] = None,
                  max_steps: int = 50, end_id: int = 2, f32: bool = False,
-                 block_images: int = 4, device: DeviceLike = None):
-        if block_images not in TILE_IMAGES:
+                 block_images: Optional[int] = None, device: DeviceLike = None):
+        if block_images is not None and block_images not in TILE_IMAGES:
             raise ValueError(f"block_images must be one of {TILE_IMAGES}")
         super().__init__(decoder_params, gru_params, f32, device)
+        if block_images is None:
+            block_images = BEAM_BLOCK_IMAGES[self.cdt]
         self.max_steps, self.end_id, self.block_images = max_steps, end_id, block_images
 
     def _run(self, raw_features, style_rows, cell, logits, select) -> BeamResult:
@@ -708,7 +830,7 @@ def fused_beam_search(
     gru_params: Optional[Dict] = None,
     max_steps: int = 50,
     end_id: int = 2,
-    block_images: int = 4,
+    block_images: Optional[int] = None,
     f32: bool = False,
     style_rows=None,
     device: DeviceLike = None,
@@ -721,7 +843,9 @@ def fused_beam_search(
     bf16 and computes in f32.  Mixed-style batches: ``gru_params`` with a
     leading style axis (a bank from ``synthesize_theta_batched``) plus
     ``style_rows`` [B], clamped to [0, S).  ``block_images`` is the number
-    of images per block of the cell kernel (1, 2 or 4)."""
+    of images per block of the cell kernel (1, 2 or 4; bf16: of its
+    attention phase); None takes the fastest for the weight dtype
+    (``BEAM_BLOCK_IMAGES``)."""
     decoder = BeamDecoder(decoder_params, gru_params, max_steps, end_id, f32,
                           block_images, device)
     return decoder(raw_features, style_rows)

@@ -12,12 +12,16 @@ plain oracles that run every step (small shapes, then the full width of
 the hypernet attention-GRU model), holds the bf16 vocab products of K1 and
 K2 (tensor cores, h split into three bf16 terms) against their plain
 versions at the edges of their tiling and on ties, serves batches through
-the port's beam and greedy servers, shows that the early exit fires, runs
-hypernet train steps through K3 and through the per-step loop, holds K4
-against its plain version at small shapes and at the full width of
-ResNet-152, serves uint8 images through the port's ``CaptionService``
-(ResNet-152 on K4, then K1 or K2), and times each kernel, each train step
-and the image path.  One line per phase gives the phase's seconds.  The line before the last is a
+the port's beam and greedy servers, holds the cell step that K1 and K2
+share (bf16: its gate products on the tensor cores, [x | h] split into
+three bf16 terms) against its plain version at the edges of its tiling,
+for beam and greedy rows, one theta and an S=3 bank, shows that the early
+exit fires, runs hypernet train steps through K3 and through the per-step
+loop, holds K4 against its plain version at small shapes and at the full
+width of ResNet-152, serves uint8 images through the port's
+``CaptionService`` (ResNet-152 on K4, then K1 or K2), and times each
+kernel (the cell step's two phases apart), each train step and the image
+path.  One line per phase gives the phase's seconds.  The line before the last is a
 JSON ``kernels`` record; the last line is ``{"ok": true, "device":
 {...}}``.  Any mismatch, a missing card or a failed build raises, and the
 script exits non-zero without that last line.
@@ -111,6 +115,9 @@ VOCAB_EDGE_ROWS = (1, 3, 63, 64, 65, 127, 129, 192, 1024, 3072)
 VOCAB_EDGE_H = (24, 200, 256)  # 256: the widest h, on the 8-stage ring
 VOCAB_EDGE_VP = (128, 384, 9728)
 VOCAB_KERNELS = ("logits_top3_wgmma_kernel", "logits_top1_wgmma_kernel")
+# the bf16 cell step (a): its edge sweep's row counts, and its kernels' names
+CELL_EDGE_ROWS = (1, 3, 63, 64, 65, 192, 1024, 3072)
+CELL_KERNELS = ("attend_kernel", "gates_kernel")
 
 CARD = ""
 DEVICE = "cuda"
@@ -182,7 +189,7 @@ def card_and_build():
         if any(k in line for k in ("registers", "spill", "smem", "Compiling entry", "wgmma")):
             say("  ptxas:", line.strip())
     if info.log:
-        for name in VOCAB_KERNELS:
+        for name in VOCAB_KERNELS + CELL_KERNELS:
             report = ptxas_report(info.log, name)
             require(len(report) > 0, f"ptxas reports no kernel {name}")
             for entry, (regs, stores, loads) in report.items():
@@ -196,7 +203,11 @@ def card_and_build():
         f"{lib.train_wgrad_smem()} B; conv_gemm_bf16 at tile width "
         + ", ".join(f"{bn}: {lib.conv_stage_bf16_smem(bn)} B" for bn in ck.TILE_WIDTHS)
         + "; bf16 logits_top3_partial / logits_top1_partial at depth "
-        + ", ".join(f"{hd}: {lib.vocab_product_smem(hd)} B" for hd in VOCAB_EDGE_H))
+        + ", ".join(f"{hd}: {lib.vocab_product_smem(hd)} B" for hd in VOCAB_EDGE_H)
+        + f"; bf16 cell_step at H={H}: attention phase at rows per block "
+        + ", ".join(f"{br}: {lib.cell_attend_smem(br, H, R, E + FO)} B" for br in dk.TILE_ROWS)
+        + ", gate phase at (rows, groups) a block "
+        + ", ".join(f"{t}: {lib.cell_gates_smem(*t, E + FO, H)} B" for t in dk.GATE_TILES))
 
 
 # ------------------------------------------------------------------ 2, 3
@@ -692,6 +703,59 @@ def mixed_styles(model, batches):
     return launches
 
 
+# ------------------------------------------------------------------ 4b
+def cell_edges(model, theta, batches) -> None:
+    """(a) against its plain version at full width at every row count of
+    CELL_EDGE_ROWS, for beam rows (3 an image: the counts that are whole
+    images) and greedy rows; one theta, and an S=3 bank with the styles
+    clustered, interleaved and out of range; t = 0 and 1 (the zero word, or
+    token 0's embedding for greedy, then real tokens); f32 and bf16
+    weights; rows per block of (a) cycling through TILE_ROWS.  Each within
+    SMALL_SCORE_TOL, the tolerance of the per-step pieces checks."""
+    bank = synthesize_theta_batched(model, style_table(model)[torch.tensor([4, 3, 6],
+                                                                          device=DEVICE)])
+    g = gen(40)
+    raw = torch.cat(batches)  # 3072 images: the greedy rows' largest count
+    worst, n = {}, 0
+    for f32 in (True, False):
+        decs = {S: dk.BeamDecoder(model["decoder"], gru, f32=f32, device=DEVICE)
+                for S, gru in ((1, theta), (3, bank))}
+        for kind, rpi in (("beam", dk.K), ("greedy", 1)):
+            for rows in CELL_EDGE_ROWS:
+                if rows % rpi:
+                    continue
+                b = rows // rpi
+                h = torch.tanh(torch.randn((rows, H), generator=g)).to(DEVICE)
+                tok = torch.randint(0, V, (rows,), generator=g, dtype=torch.int32).to(DEVICE)
+                layouts = {"one theta": (1, torch.zeros(b, dtype=torch.int32)),
+                           "clustered": (3, torch.arange(b, dtype=torch.int32) * 3 // b),
+                           "interleaved": (3, torch.arange(b, dtype=torch.int32) % 3),
+                           "out of range": (3, torch.randint(-2, 6, (b,), generator=g,
+                                                             dtype=torch.int32))}
+                prepared = {S: d.prepare(raw[:b], torch.zeros(b, dtype=torch.int32))
+                            for S, d in decs.items()}
+                for layout, (S, styles) in layouts.items():
+                    feats, att1, _, _ = prepared[S]
+                    w, st = decs[S].weights(), styles.to(DEVICE)
+                    for t in (0, 1):
+                        br = dk.TILE_ROWS[n % len(dk.TILE_ROWS)]
+                        n += 1
+                        got = dk.cell_step(feats, att1, h, tok, st, t, w,
+                                           zero_word_t0=kind == "beam", block_rows=br)
+                        ref = dk.cell_step_plain(feats, att1, h, tok, st, t, w,
+                                                 zero_word_t0=kind == "beam")
+                        err = (got - ref).abs().max().item()
+                        what = (f"(a) {'f32' if f32 else 'bf16'} {kind} rows {rows}, {layout}, "
+                                f"t {t}, {br} rows per block")
+                        require(err <= SMALL_SCORE_TOL, f"{what}: max abs err {err}")
+                        key = ("f32" if f32 else "bf16", kind)
+                        worst[key] = max(worst.get(key, 0.0), err)
+    say(f"  cell_step edge sweep, {n} cases (rows {CELL_EDGE_ROWS}; beam rows where whole "
+        f"images; one theta and an S=3 bank clustered, interleaved, out of range; t 0 and 1): "
+        "max abs err against the plain version "
+        + ", ".join(f"{k[0]} {k[1]} {v:.3e}" for k, v in worst.items()) + f" [{CARD}]")
+
+
 # ------------------------------------------------------------------ 6
 def micro_batcher(server, batches, what: str = "micro-batcher", kernels=dk.BEAM_KERNELS):
     n = 32
@@ -931,6 +995,44 @@ def depth16_ms(fn, h, w) -> float:
     return device_ms(lambda: fn(h16, w16), 50)
 
 
+CELL_PARTS = {"attention": 1, "without U_a": 1 | 4, "without the scores": 1 | 8,
+              "without the context": 1 | 16, "gates": 2, "without the copy of [x | h]": 2 | 32}
+
+
+def cell_phases_ms(call) -> dict:
+    """Device times of the bf16 cell's attention phase and gate phase, each
+    launched alone (the C entry's ``phases`` 1 and 2) with the arguments
+    that ``call`` gives it, and of each phase with one part left out
+    (CELL_PARTS; a part's cost is the phase's time less that)."""
+    seen = []
+    dk.CELL.launch = lambda symbol, *args: seen.append((symbol, args))
+    try:
+        keep = call()  # h_new, whose address the recorded call holds
+    finally:
+        del dk.CELL.launch
+    symbol, args = seen[0]
+    require(symbol == "cell_step_bf16", f"{symbol} has no phases")
+    rows, F_, E_, H_, mb = args[16], args[20], args[21], args[22], args[25]
+    apk = torch.empty((-(-rows // mb) * mb, 3, (-(-(E_ + F_) // 16) + -(-H_ // 16)) * 16),
+                      dtype=torch.bfloat16, device=DEVICE)  # the split [x | h] the phases pass on
+    args = args[:13] + (apk.data_ptr(),) + args[14:]
+    fn = getattr(_cuda.library(), symbol)
+    out = {k: device_ms(lambda a=args[:-2] + (p, args[-1]): fn(*a), 50)
+           for k, p in CELL_PARTS.items()}
+    del keep
+    return out
+
+
+def cell_phases_line(what: str, call, rows: int, block_rows: int) -> dict:
+    ms = cell_phases_ms(call)
+    tile = dk.gate_tile(rows, H, dk._sms(torch.device(DEVICE)))
+    say(f"  {what} by phase: attention {ms['attention']:.4f} ms ({block_rows} rows a block; "
+        + ", ".join(f"{k} {ms[k]:.4f}" for k in list(CELL_PARTS)[1:4])
+        + f"), gates {ms['gates']:.4f} ms (tile {tile}: {dk.gate_blocks(rows, H, tile)} blocks; "
+        f"without the copy of [x | h] {ms['without the copy of [x | h]']:.4f}) [{CARD}]")
+    return {"attend_ms": ms["attention"], "gates_ms": ms["gates"]}
+
+
 def cell_cost(feats, att1, h, tok, styles, w, h_new):
     """Bytes and operations of one cell step over ``h``'s rows."""
     rows = h.shape[0]
@@ -954,8 +1056,9 @@ def beam_times(model, theta, batches, paths):
     feats, att1, h0, styles = dec.prepare(batches[0], None)
     w = dec.weights()
     wdt = w["fc_w"].dtype
+    br = dk.K * dec.block_images  # the served decoder's rows per block of (a)
     state = dk._init_state(h0, MAX_STEPS)
-    h1 = dk.cell_step(feats, att1, state["h"], state["tok"], styles, 0, w)
+    h1 = dk.cell_step(feats, att1, state["h"], state["tok"], styles, 0, w, block_rows=br)
     dk.beam_select(*dk.logits_top3_partial(h1, w["fc_w"], w["fc_b"]), h1, state, 0, END)
     state["hist_in"], state["hist_out"] = state["hist_out"], state["hist_in"]
     state["run"].fill_(1)
@@ -967,13 +1070,20 @@ def beam_times(model, theta, batches, paths):
     per_batch = N_BATCHES * 2  # the main path serves each batch at f32 and bf16
     out = []
 
-    cell = lambda: dk.cell_step(feats, att1, state["h"], state["tok"], styles, t, w)
+    cell = lambda: dk.cell_step(feats, att1, state["h"], state["tok"], styles, t, w,
+                                block_rows=br)
     cell_plain = lambda: dk.cell_step_plain(feats, att1, state["h"], state["tok"], styles, t, w)
     hk, hp = cell(), cell_plain()
     out.append(kernel_entry(
         "cell_step (beam rows)", dk.CELL, "beam", BEAM_SOURCE, BEAM_TPU, cell, cell_plain,
         None, *cell_cost(feats, att1, state["h"], state["tok"], styles, w, hk),
         (hk - hp).abs().max().item(), wdt, paths, per_batch))
+    out[-1].update(cell_phases_line(f"cell_step (beam rows, B={B})", cell, rows, br))
+    tiles = {br: device_ms(lambda br=br: dk.cell_step(feats, att1, state["h"], state["tok"],
+                                                      styles, t, w, block_rows=br), 50)
+             for br in dk.TILE_ROWS}
+    say("  cell_step (beam rows) by rows per block: "
+        + ", ".join(f"{br}: {ms:.4f} ms" for br, ms in tiles.items()) + f" (B={B}) [{CARD}]")
 
     logits = lambda: dk.logits_top3_partial(hp, w["fc_w"], w["fc_b"])
     logits_plain = lambda: dk.logits_top3_partial_plain(hp, w["fc_w"], w["fc_b"])
@@ -1018,8 +1128,8 @@ def beam_times(model, theta, batches, paths):
                            device=DEVICE)
     f32_, a32, _, _ = dec32.prepare(batches[0], None)
     w32 = dec32.weights()
-    c32 = device_ms(lambda: dk.cell_step(f32_, a32, state["h"], state["tok"], styles, t,
-                                         w32), 50)
+    c32 = device_ms(lambda: dk.cell_step(f32_, a32, state["h"], state["tok"], styles, t, w32,
+                                         block_rows=dk.K * dec32.block_images), 50)
     l32 = device_ms(lambda: dk.logits_top3_partial(hp, w32["fc_w"], w32["fc_b"]), 50)
     say(f"  f32 weights: cell_step (beam rows) {c32:.4f} ms, logits_top3_partial "
         f"{l32:.4f} ms (B={B}) [{CARD}]")
@@ -1060,6 +1170,8 @@ def greedy_times(model, theta, batches, paths):
         "cell_step (greedy rows)", dk.CELL, "greedy", BEAM_SOURCE, GREEDY_TPU, cell,
         cell_plain, None, *cell_cost(*args[:5], w, hk), (hk - hp).abs().max().item(), wdt,
         paths, per_batch))
+    out[-1].update(cell_phases_line(f"cell_step (greedy rows, B={B})", cell, rows,
+                                    dk.GREEDY_BLOCK_ROWS))
 
     logits = lambda: dk.logits_top1_partial(hp, w["fc_w"], w["fc_b"])
     logits_plain = lambda: dk.logits_top1_partial_plain(hp, w["fc_w"], w["fc_b"])
@@ -1116,14 +1228,19 @@ def service_step_times(model, batches) -> None:
     for kind in ("beam", "greedy"):
         if kind == "beam":
             dec = dk.BeamDecoder(d, bank, max_steps=MAX_STEPS, device=DEVICE)
-            cell = functools.partial(dk.cell_step, block_rows=dk.K * dec.block_images)
+            br = dk.K * dec.block_images
+            cell = functools.partial(dk.cell_step, block_rows=br)
+            cell_plain = dk.cell_step_plain
             logits, select, init = dk.logits_top3_partial, dk.beam_select, dk._init_state
+            plains = (dk.logits_top3_partial_plain, dk.beam_select_plain)
             names = ("cell_step (beam rows)", "logits_top3_partial", "beam_select")
         else:
             dec = dk.GreedyDecoder(d, bank, max_len=MAX_LEN, device=DEVICE)
-            cell = functools.partial(dk.cell_step, zero_word_t0=False,
-                                     block_rows=dk.GREEDY_BLOCK_ROWS)
+            br = dk.GREEDY_BLOCK_ROWS
+            cell = functools.partial(dk.cell_step, zero_word_t0=False, block_rows=br)
+            cell_plain = functools.partial(dk.cell_step_plain, zero_word_t0=False)
             logits, select, init = dk.logits_top1_partial, dk.greedy_select, dk._init_greedy_state
+            plains = (dk.logits_top1_partial_plain, dk.greedy_select_plain)
             names = ("cell_step (greedy rows)", "logits_top1_partial", "greedy_select")
         feats, att1, h0, styles = dec.prepare(x, rows_in)
         w = dec.weights()
@@ -1148,10 +1265,20 @@ def service_step_times(model, batches) -> None:
         bounds = (bound_ms(cell_b, cell_f, w["fc_w"].dtype),
                   bound_ms(nbytes(hk, w["fc_w"], w["fc_b"], *parts), 2 * rows * H * vp,
                            w["fc_w"].dtype))
+        scratch_plain = clone_state(state)
+        plain_times = (
+            wall_ms(lambda: cell_plain(feats, att1, state["h"], state["tok"], styles, t, w), 5),
+            wall_ms(lambda: plains[0](hk, w["fc_w"], w["fc_b"]), 5),
+            wall_ms(lambda: plains[1](*parts, hk, scratch_plain, t, END), 5),
+        )
         say(f"  {kind} step at the service's batch ({ENC_B} images, {rows} rows, S=3 bank): "
             + ", ".join(f"{n} {ms:.4f} ms" for n, ms in zip(names, times))
             + f"; bounds {bounds[0][0]:.4f} ms ({bounds[0][1]}), {bounds[1][0]:.4f} ms "
-            f"({bounds[1][1]}); {sum(times):.4f} ms a step [{CARD}]")
+            f"({bounds[1][1]}); {sum(times):.4f} ms a step; plain versions "
+            + ", ".join(f"{ms:.4f}" for ms in plain_times) + f" ms [{CARD}]")
+        cell_phases_line(f"cell_step ({kind} rows, the service's batch)",
+                         lambda: cell(feats, att1, state["h"], state["tok"], styles, t, w), rows,
+                         br)
 
 
 def bare_launch_ms(op, call) -> float:
@@ -2109,6 +2236,8 @@ def main() -> int:
     with Phase("4 full width, beam main path"):
         model, theta, batches = full_model()
         paths["beam"]["main"], server = main_path(model, theta, batches)
+    with Phase("4b the cell step at its edges"):
+        cell_edges(model, theta, batches)
     with Phase("5 beam, mixed styles"):
         paths["beam"]["mixed"] = mixed_styles(model, batches)
     with Phase("6 beam, micro-batcher"):
