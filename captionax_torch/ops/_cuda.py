@@ -3,7 +3,7 @@
 The kernels have a plain C interface.  At first use every ``csrc/*.cu``
 (``beam_decode.cu``: the cell step and K1; ``greedy_decode.cu``: K2;
 ``train_recurrence.cu``: K3, the recurrence of training forward and
-backward; the three include ``decode_common.cuh``; ``conv_stage.cu``: K4,
+backward, on thread-block clusters; the three include ``decode_common.cuh``; ``conv_stage.cu``: K4,
 the encoder's bottleneck chains; K4 and the bf16 vocab products of K1 and
 K2 share the ``wgmma`` helpers of ``wgmma_common.cuh``) is compiled for ``sm_90a`` by an ``nvcc``
 process of its own, all started together, and one more ``nvcc`` call links
@@ -48,10 +48,12 @@ SIGNATURES = {
     "logits_top1_partial_f32": [_P] * 6 + [_I] * 3 + [_P],
     "logits_top1_partial_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "greedy_select": [_P] * 8 + [_I] * 6 + [_P],
-    "train_fwd_f32": [_P] * 12 + [_I] * 7 + [_P],
-    "train_fwd_bf16": [_P] * 12 + [_I] * 7 + [_P],
-    "train_bwd_recurrence_f32": [_P] * 23 + [_I] * 7 + [_P],
-    "train_bwd_recurrence_bf16": [_P] * 23 + [_I] * 7 + [_P],
+    "train_fwd_f32": [_P] * 11 + [_I] * 8 + [_P],
+    "train_fwd_bf16": [_P] * 11 + [_I] * 8 + [_P],
+    "train_bwd_recurrence_f32": [_P] * 25 + [_I] * 8 + [_P],
+    "train_bwd_recurrence_bf16": [_P] * 25 + [_I] * 8 + [_P],
+    "train_feats_fold_f32": [_P] * 3 + [_I] * 4 + [_P],
+    "train_feats_fold_bf16": [_P] * 3 + [_I] * 4 + [_P],
     "train_wgrad_partial": [_P] * 6 + [_I] * 4 + [_P],
     "train_wgrad_reduce": [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_P],
     "conv_stage_f32": [_P] * 16 + [_I] * 7 + [_P, _P],
@@ -62,6 +64,9 @@ SIGNATURES = {
     "cell_attend_smem": [_I] * 4,
     "cell_gates_smem": [_I] * 4,
     "train_wgrad_smem": [],
+    "train_recurrence_smem": [_I] * 7,
+    # the clusters of a recurrence kernel the card runs at once
+    "train_recurrence_clusters": [_I] * 7,
 }
 
 

@@ -6,22 +6,29 @@
 // (captionax/ops/train_kernel.py, launched by `_fused_fwd_call` and
 // `_fused_core_bwd`), which hold the whole T-step loop of a row tile in VMEM
 // and accumulate the weight gradients into one output block that every
-// (sequential) grid step revisits.  Four kernels here:
+// (sequential) grid step revisits.  Five kernels here:
 //
-//   train_fwd             one block per tile of RT rows loops over all T
-//                         steps: att2 = U_a h, Bahdanau attention with att1
-//                         precomputed, context, GRU; h stays in shared
-//                         memory, hs[B, T, H] (f32) is written per step.
-//   train_bwd_recurrence  one block per tile of RT rows runs the exact BPTT
-//                         in reverse time, recomputing each step from
-//                         h_{t-1} (read from hs).  It writes the per-row
-//                         gradients (d_feats and d_att1, accumulated in the
-//                         compute type by a read-modify-write of the row's
-//                         own slice, no atomics; d_h0; d_emb shifted back a
-//                         step), and for every (step t, row b) the operands
-//                         of the weight gradients as row n = t*B + b of
-//                         X = [word, ctx], dGI, Hprev, dGH_n and dATT2 (f32),
-//                         and its block's partial of d(v_a).
+//   train_fwd             one launch for all T steps: a thread-block
+//                         cluster of C CTAs per tile of M = 8 C rows (see
+//                         "The recurrence kernels" below); hs[B, T, H] (f32)
+//                         is written per step.
+//   train_bwd_recurrence  one launch, the same clusters, the exact BPTT in
+//                         reverse time, each step recomputed from h_{t-1}
+//                         (read from hs).  It writes the per-row gradients
+//                         (d_att1, accumulated in the compute type by a
+//                         read-modify-write of the row's own slice, no
+//                         atomics; d_h0; d_emb shifted back a step), the
+//                         operands of the d_feats fold (the attention
+//                         weights w_t and the rounded dctx_t of every step),
+//                         for every (step t, row b) the operands of the
+//                         weight gradients as row n = t*B + b of X = [word,
+//                         ctx], dGI, Hprev, dGH_n and dATT2 (f32), and one
+//                         partial of d(v_a) per 8 rows.
+//   train_feats_fold      d_feats = the fold over t = T-1 .. 0 of
+//                         d <- rnd(d + rnd(rnd(w_t) dctx_t)): the order and
+//                         roundings of the JAX kernel's per-step sum, once
+//                         per element instead of a read-modify-write of
+//                         [B, R, F] at every step.
 //   train_wgrad_partial   the weight gradients as products over all T*B
 //                         rows, [X|1]^T dGI, [Hprev|1]^T [dGI_rz|dGH_n] and
 //                         [Hprev|1]^T dATT2 (the ones column gives the bias
@@ -29,8 +36,8 @@
 //                         output tiles, each over one of `splits` chunks of
 //                         rows, into partials (design at pass 2 below).
 //   train_wgrad_reduce    sums the partials over the chunks, and d(v_a)
-//                         over the blocks of the recurrence, in a fixed
-//                         order: the gradients are deterministic.
+//                         over the 8-row blocks, in a fixed order: the
+//                         gradients are deterministic.
 //
 // What bounds it on this card.  Hopper's blocks run in parallel in no order,
 // and d(w_ih) alone is 400 x 600 f32 (960 KB), beyond a block's 227 KB of
@@ -38,13 +45,52 @@
 // over rows in device memory (about 200 MB at B=1024, T=25).  Per row and
 // step the recurrence does ~0.85 MFLOP (U_a, w_ih, w_hh products and the
 // 49-region attention) forward and about twice that backward, 22 and 44
-// GFLOP at B=1024, T=25, plus 0.25 G tanh per pass; the 0.8-1.6 MB of
-// weights do not fit on chip either, so they are read from L2 once per tile
-// and step and each weight is reused across the tile's RT rows (the design
-// of K1's cell kernel).  The recurrence kernels compute in f32 on the CUDA
-// cores, bf16 being a storage type; tensor cores (wgmma) are their next
-// step.  Pass 2 is 20.6 GFLOP of f32 products at B=1024, T=25 (0.31 ms at
-// the 67 TFLOP/s f32 peak), which the JAX kernel takes in f32 too.
+// GFLOP at B=1024, T=25, plus 0.25 G tanh per pass; att1 and feats (80 MB
+// in f32) are read at every step.  Pass 2 is 20.6 GFLOP of f32 products at
+// B=1024, T=25 (0.31 ms at the 67 TFLOP/s f32 peak), which the JAX kernel
+// takes in f32 too.
+//
+// The recurrence kernels.  A cluster of C CTAs (C = 2, 4 or 8, launched with
+// cudaLaunchKernelEx and a cluster dimension; train_kernel.cluster_shape
+// picks C from what cudaOccupancyMaxActiveClusters reports) takes M = 8 C
+// rows.  Its CTAs split the H / 8 groups of 8 hidden units (CTA c holds
+// groups c U / C .. (c + 1) U / C - 1), each group's r, z and n columns side
+// by side, and the rows of the attention, 8 a CTA.  A step of the forward:
+//   1. [gh | att2] = rnd(h) [w_hh^T | U_a] for the CTA's groups and all M
+//      rows (one product: a group's r, z, n and U_a columns are 32 columns
+//      of the packed `wh`);
+//   2. cluster barrier; each CTA copies its 8 rows' att2 from the owners of
+//      the columns (distributed shared memory) and runs the attention for
+//      them: scores, softmax, context;
+//   3. cluster barrier; each CTA copies [word | ctx] of all M rows (the
+//      words from device memory, the contexts from their rows' CTAs);
+//      gi = rnd(x) w_ih^T for its groups, then the GRU from gi and gh;
+//   4. cluster barrier; each CTA copies the new h of all M rows from the
+//      owners of the units.
+// The backward recomputes 1-3 and then reverses them with the same slices
+// in the other direction: dx = dgi w_ih and dh = [dgh | datt2] [w_hh | U_a^T]
+// (the packed `wxr`, `whr`: the transposes) are partial sums over the CTA's
+// groups, added across the cluster through distributed shared memory in
+// rank order (so the gradients are deterministic): dx for each CTA's 8 rows
+// (the word part, then the context part, through one [M, max(E, F, H)]
+// buffer), dh for each CTA's own units; between them the attention
+// backward of the CTA's rows.  7 cluster barriers a step backward, 3 forward.
+// Products: bf16 weights on the tensor cores, mma.sync m16n8k16 with f32
+// accumulators, one bf16 term per operand (the JAX kernel rounds every
+// product operand to the compute type, so the products are exact), A from
+// shared memory by ldmatrix, B as fragments packed once per call
+// (train_kernel.pack_recurrence) read from L2 by __ldg, a batch of k16
+// tiles ahead; f32 weights as register-tiled FMAs on the CUDA cores (no
+// TF32: the JAX kernel's f32 function), the slice streamed from L2 through
+// a cp.async ring in shared memory (fma_product).  Each CTA reads its 1/C
+// of the weights once per step and product: the whole weight set once per M
+// rows and step (4 rows before).  The attention reads att1 and feats with
+// 16-byte loads, several regions' loads in flight; d_att1 is accumulated in
+// device memory per step (its term needs the tanh again).  Measured on the
+// H100 (PERF.md): at B=1024 the card runs 66 clusters of 2 at once, 30 of 4
+// and 15 of 8, so M = 16; with one 256-thread CTA an SM (~250 registers a
+// thread), the scores' tanhf chains run latency-bound, and the f32 products
+// are bound by shared-memory wavefronts.
 //
 // Rounding.  The kernels round to the compute type W where the JAX kernel
 // keeps a value in it (rnd<W>): att2, the attention temporaries, the scores
@@ -55,16 +101,19 @@
 // Plain C interface, loaded with ctypes; every entry returns
 // cudaGetLastError() after its launches.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "decode_common.cuh"
 
 namespace {
 
 using namespace decode;
+namespace cg = cooperative_groups;
 
 template <typename W>
 struct Cvt {
@@ -78,392 +127,1148 @@ struct Cvt<__nv_bfloat16> {
   __device__ static __nv_bfloat16 to_w(float x) { return __float2bfloat16_rn(x); }
 };
 
-// The forward of one step for the tile's rows, from sh/shc (h and h rounded
-// to W) and the word in sx/sxc[0:E]: sa2 = rnd(rnd(h).U_a + b), the
-// attention weights sw, the context into sx/sxc[E:].  Ends synchronised.
-template <typename W, int RT>
-__device__ void attend(const W* __restrict__ feats, const W* __restrict__ att1,
-                       const W* __restrict__ ua_w, const float* __restrict__ ua_b,
-                       const float* __restrict__ va, const float* shc, float* sx, float* sxc,
-                       float* sa2, float* sw, int r0, int nr, int R, int F, int E, int H) {
-  using C = Cvt<W>;
-  const int In = E + F;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  for (int j = tid; j < H; j += nt) {
-    float acc[RT];
-#pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] = 0.f;
-    for (int i = 0; i < H; ++i) {
-      const float w = to_f(ua_w[(size_t)i * H + j]);
-#pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] += shc[r * H + i] * w;
-    }
-#pragma unroll
-    for (int r = 0; r < RT; ++r) sa2[r * H + j] = C::rnd(acc[r] + ua_b[j]);
-  }
-  __syncthreads();
+// 16 bytes of W: load (read-only, through the texture path or plain) and
+// store (rounded to W), widened to f32.
+template <typename W>
+struct Vec;
 
-  for (int p = warp; p < nr * R; p += nw) {  // scores: one warp per (row, region)
-    const int r = p / R, rho = p % R;
-    const W* a1 = att1 + ((size_t)(r0 + r) * R + rho) * H;
-    float s = 0.f;
-    for (int j = lane; j < H; j += 32) {
-      const float a = C::rnd(tanhf(C::rnd(to_f(a1[j]) + sa2[r * H + j])));
-      s += C::rnd(a * C::rnd(va[j]));
-    }
-    s = warp_sum(s);
-    if (lane == 0) sw[r * R + rho] = C::rnd(s);
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void ldg(const float* p, float (&v)[4]) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
   }
-  __syncthreads();
+  __device__ static void ld(const float* p, float (&v)[4]) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  }
+  __device__ static void st(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
 
-  for (int r = warp; r < nr; r += nw) {  // softmax over regions, in f32
-    float m = -INFINITY;
-    for (int rho = lane; rho < R; rho += 32) m = fmaxf(m, sw[r * R + rho]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int rho = lane; rho < R; rho += 32) {
-      const float e = expf(sw[r * R + rho] - m);
-      sw[r * R + rho] = e;
-      sum += e;
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(const uint4& x, float (&v)[8]) {
+    const unsigned w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(w[i] << 16);
+      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
-    sum = warp_sum(sum);
-    for (int rho = lane; rho < R; rho += 32) sw[r * R + rho] = sw[r * R + rho] / sum;
   }
-  __syncthreads();
+  __device__ static void ldg(const __nv_bfloat16* p, float (&v)[8]) {
+    unpack(__ldg(reinterpret_cast<const uint4*>(p)), v);
+  }
+  __device__ static void ld(const __nv_bfloat16* p, float (&v)[8]) {
+    unpack(*reinterpret_cast<const uint4*>(p), v);
+  }
+  __device__ static unsigned pair(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const unsigned*>(&h);
+  }
+  __device__ static void st(__nv_bfloat16* p, const float (&v)[8]) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pair(v[0], v[1]), pair(v[2], v[3]), pair(v[4], v[5]), pair(v[6], v[7]));
+  }
+};
 
-  for (int e = tid; e < RT * F; e += nt) {  // context: one thread per (row, feature)
-    const int r = e / F, f = e % F;
-    float c = 0.f;
-    if (r < nr) {
-      const W* fp = feats + (size_t)(r0 + r) * R * F + f;
-      for (int rho = 0; rho < R; ++rho)
-        c += C::rnd(C::rnd(sw[r * R + rho]) * to_f(fp[(size_t)rho * F]));
-    }
-    c = C::rnd(c);
-    sx[r * In + E + f] = c;
-    sxc[r * In + E + f] = c;
-  }
-  __syncthreads();
+// four values of W at p (16-byte aligned for f32, 8 for bf16), rounded to W
+__device__ __forceinline__ void put4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void put4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(Vec<__nv_bfloat16>::pair(v.x, v.y), Vec<__nv_bfloat16>::pair(v.z, v.w));
 }
 
-// The three gate pre-activations of column j for the tile's rows:
-// gi[k][r] = rnd(x_r) . w_ih^T[:, kH + j] + b_ih, gh likewise from rnd(h_r).
-template <typename W, int RT>
-__device__ __forceinline__ void gates(const W* __restrict__ wih, const W* __restrict__ whh,
-                                      const float* __restrict__ bih,
-                                      const float* __restrict__ bhh, const float* sxc,
-                                      const float* shc, int j, int In, int H,
-                                      float (&gi)[3][RT], float (&gh)[3][RT]) {
-  const int G = 3 * H;
+// n (a multiple of 4) floats of shared memory at p (16-byte aligned): whole
+// 16-byte loads, so that a warp reading consecutive chunks has no bank
+// conflicts (a float a lane at a stride of n would have n-way ones)
+template <int n>
+__device__ __forceinline__ void ld_floats(const float* p, float (&v)[n]) {
 #pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int r = 0; r < RT; ++r) gi[k][r] = gh[k][r] = 0.f;
-  for (int i = 0; i < In; ++i) {
-    const W* wr = wih + (size_t)i * G + j;
-    const float w0 = to_f(wr[0]), w1 = to_f(wr[H]), w2 = to_f(wr[2 * H]);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const float x = sxc[r * In + i];
-      gi[0][r] += x * w0;
-      gi[1][r] += x * w1;
-      gi[2][r] += x * w2;
-    }
-  }
-  for (int i = 0; i < H; ++i) {
-    const W* wr = whh + (size_t)i * G + j;
-    const float w0 = to_f(wr[0]), w1 = to_f(wr[H]), w2 = to_f(wr[2 * H]);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const float x = shc[r * H + i];
-      gh[0][r] += x * w0;
-      gh[1][r] += x * w1;
-      gh[2][r] += x * w2;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      gi[k][r] += bih[k * H + j];
-      gh[k][r] += bhh[k * H + j];
-    }
-}
-
-// Loads h_{t-1} (row r at src_h[(h_row0 + r) * h_stride]) and the word of
-// step t (zero at t = 0, else embeds[b, t-1]) for the tile's rows, each
-// also rounded to W.
-template <typename W, int RT>
-__device__ void load_step(const float* src_h, int h_row0, size_t h_stride,
-                          const float* __restrict__ embeds, int t, int T, float* sh,
-                          float* shc, float* sx, float* sxc, int r0, int nr, int E, int F,
-                          int H) {
-  using C = Cvt<W>;
-  const int In = E + F;
-  for (int e = threadIdx.x; e < RT * H; e += blockDim.x) {
-    const int r = e / H;
-    const float v = r < nr ? src_h[(size_t)(h_row0 + r) * h_stride + e % H] : 0.f;
-    sh[e] = v;
-    shc[e] = C::rnd(v);
-  }
-  for (int e = threadIdx.x; e < RT * E; e += blockDim.x) {
-    const int r = e / E, j = e % E;
-    const float v =
-        (r < nr && t > 0) ? embeds[((size_t)(r0 + r) * T + t - 1) * E + j] : 0.f;
-    sx[r * In + j] = v;
-    sxc[r * In + j] = C::rnd(v);
+  for (int i = 0; i < n; i += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + i);
+    v[i] = x.x, v[i + 1] = x.y, v[i + 2] = x.z, v[i + 3] = x.w;
   }
 }
 
-// ------------------------------------------------------------ forward
-template <typename W, int RT>
-__global__ void __launch_bounds__(256) train_fwd_kernel(
-    const W* __restrict__ feats, const W* __restrict__ att1, const float* __restrict__ h0,
-    const float* __restrict__ embeds, const W* __restrict__ ua_w,
-    const float* __restrict__ ua_b, const float* __restrict__ va, const W* __restrict__ wih,
-    const W* __restrict__ whh, const float* __restrict__ bih, const float* __restrict__ bhh,
-    float* __restrict__ hs, int B, int T, int R, int F, int E, int H) {
-  extern __shared__ float smem[];
-  const int In = E + F;
-  float* sh = smem;            // [RT, H]   h (f32)
-  float* shc = sh + RT * H;    // [RT, H]   h rounded to W
-  float* shn = shc + RT * H;   // [RT, H]   the new h
-  float* sx = shn + RT * H;    // [RT, In]  x = [word, ctx]
-  float* sxc = sx + RT * In;   // [RT, In]  x rounded to W
-  float* sa2 = sxc + RT * In;  // [RT, H]   att2
-  float* sw = sa2 + RT * H;    // [RT, R]   scores -> attention weights
-  const int r0 = blockIdx.x * RT, nr = min(RT, B - r0);
-  const int tid = threadIdx.x, nt = blockDim.x;
+// ================================================================ the recurrence
+namespace rec {
 
-  for (int t = 0; t < T; ++t) {
-    if (t == 0)
-      load_step<W, RT>(h0, r0, H, embeds, 0, T, sh, shc, sx, sxc, r0, nr, E, F, H);
-    else
-      load_step<W, RT>(shn, 0, H, embeds, t, T, sh, shc, sx, sxc, r0, nr, E, F, H);
-    __syncthreads();
-    attend<W, RT>(feats, att1, ua_w, ua_b, va, shc, sx, sxc, sa2, sw, r0, nr, R, F, E, H);
-    for (int j = tid; j < H; j += nt) {
-      float gi[3][RT], gh[3][RT];
-      gates<W, RT>(wih, whh, bih, bhh, sxc, shc, j, In, H, gi, gh);
+constexpr int kThreads = 256, kWarps = 8;
+constexpr int kRowsA = 8;  // rows of the attention a CTA: a cluster of C CTAs takes M = 8 C
+constexpr int kUnits = 8;  // hidden units of a group
+constexpr int kStages = 4, kDepth = 8;  // f32 weights: a ring of 4 stages of 8 rows
+constexpr int kMaxH = 256;  // widest H and F: a lane holds 2 (f32) or 1 (bf16) 16-byte chunks of a row
+constexpr int kPairs = 4;   // (row, region) pairs a warp scores at once, their loads together
+constexpr int kRegions = 8; // regions of the context whose feats load together
+// `skip` bits: a part left out of every step, to time the parts; the output
+// is then not the function
+constexpr int kSkipAttention = 1;      // scores, softmax, context
+constexpr int kSkipGates = 2;          // the h and x products and the GRU (and its backward)
+constexpr int kSkipReverse = 4;        // the dx and dh products and their sums across the cluster
+constexpr int kSkipAttentionBack = 8;  // the attention backward
+constexpr int kSkipScores = 16;        // of the attention: the scores alone
+constexpr int kSkipContext = 32;       // of the attention: the context alone
+
+__host__ __device__ constexpr int ktiles(int n) { return (n + 15) / 16; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int take(int& off, int bytes) {
+  const int o = off;
+  off += (bytes + 15) & ~15;
+  return o;
+}
+
+// The first group of CTA c, and the CTA that holds group u: groups
+// c U / C .. (c + 1) U / C - 1 (a CTA may hold none when U < C).
+__host__ __device__ inline int group_start(int c, int C, int U) { return c * U / C; }
+__host__ __device__ inline int group_owner(int u, int C, int U) { return ((u + 1) * C - 1) / U; }
+
+// Shared memory of a CTA (byte offsets; row strides in elements).  A
+// operands of the products are row-major in W: ah = rnd(h) [M][ldh], ax =
+// rnd([word | ctx]) [M][ldx] (the backward's partial sums P [M][ldp] f32
+// take its place once x is used), adg_i / adg_h = rnd(dgi) / rnd([dgh |
+// datt2]) [M][ldg] in the packed column order (per group r, z, n and a 4th
+// slot: zero for dgi, datt2 for dgh).  bf16 rows carry 8 values of padding
+// (a row stride of an odd multiple of 16 bytes: ldmatrix without bank
+// conflicts), f32 rows 4.  gh [M][NG 24] (+ b_hh) and hown [M][NG 8] (h of
+// the own units, f32), dh [M][NG 8] (dL/dh of the own units), a2 (att2 of
+// the own units [M][NG 8], read by the peers; backward: then datt2 of the 8
+// rows [8][H]), xpub (the 8 rows' contexts [8][F], read by the peers;
+// backward: then dctx [8][F] and the d(v_a) terms [8][H]), att2 [8][H] of
+// the 8 rows, the scores / weights w, dw and ds [8][Rp], d(v_a) [H],
+// rnd(v_a) [H]; f32: the ring of the weights' stages (fma_product).
+struct Layout {
+  int ldh, ldx, ldg, ldp, ldr, ng;
+  int ah, ax, adg_i, adg_h, gh, hown, dh, a2, xpub, att2, w, dw, ds, dva, vac, ring, total;
+};
+
+__host__ __device__ inline Layout layout(bool bwd, bool bf16, int C, int R, int F, int E, int H) {
+  Layout L;
+  const int ws = bf16 ? 2 : 4;
+  const int M = kRowsA * C, U = H / kUnits, NG = (U + C - 1) / C, In = E + F;
+  const int Rp = (R + 3) & ~3;
+  L.ng = NG;
+  L.ldh = bf16 ? ktiles(H) * 16 + 8 : H + 4;
+  L.ldx = bf16 ? ktiles(In) * 16 + 8 : In + 4;
+  L.ldg = NG * 32 + (bf16 ? 8 : 4);
+  L.ldp = imax(E, imax(F, H)) + 4;
+  int off = 0;
+  L.ah = take(off, M * L.ldh * ws);
+  L.ax = take(off, imax(M * L.ldx * ws, bwd ? M * L.ldp * 4 : 0));
+  L.adg_i = bwd ? take(off, M * L.ldg * ws) : 0;
+  L.adg_h = bwd ? take(off, M * L.ldg * ws) : 0;
+  L.gh = take(off, M * NG * 24 * 4);
+  L.hown = take(off, M * NG * 8 * 4);
+  L.dh = bwd ? take(off, M * NG * 8 * 4) : 0;
+  L.a2 = take(off, imax(M * NG * 8, bwd ? kRowsA * H : 0) * 4);
+  L.xpub = take(off, kRowsA * (F + (bwd ? H : 0)) * 4);
+  L.att2 = take(off, kRowsA * H * 4);
+  L.w = take(off, kRowsA * Rp * 4);
+  L.dw = bwd ? take(off, kRowsA * Rp * 4) : 0;
+  L.ds = bwd ? take(off, kRowsA * Rp * 4) : 0;
+  L.dva = bwd ? take(off, H * 4) : 0;
+  L.vac = take(off, H * 4);
+  L.ldr = imax(NG * 32, imax(E, imax(F, H)));
+  L.ring = bf16 ? 0 : take(off, kStages * kDepth * L.ldr * 4);
+  L.total = off;
+  return L;
+}
+
+// d += a . b on the tensor cores, bf16 in, f32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], const uint4& a, const uint2& b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ void ldmatrix4(uint4& a, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a.x), "=r"(a.y), "=r"(a.z), "=r"(a.w)
+               : "r"(addr));
+}
+
+// out = A . B on the tensor cores for the M rows of A (bf16, row-major at
+// shared address a_base, lda_bytes a row) over `kts` k16 tiles, into tasks
+// of NT consecutive n8 tiles: task i takes n8 tiles nt0 + i NT .. + NT - 1
+// of B, whose fragments `bpk` holds as mma.sync B fragments [KT][nt_tot][32
+// lanes] (train_kernel.pack_recurrence), k16 tiles from kt0.  A warp takes
+// tasks warp, warp + 8, ...; epi(task, acc) gets the f32 accumulators in the
+// mma C layout (lane l: c0, c1 = row l/4, columns 2 (l%4) + 0, 1; c2, c3 =
+// row l/4 + 8).  B fragments load in batches of KB k16 tiles, the next
+// batch during this one's products.
+template <int MT, int NT, class Epi>
+__device__ __forceinline__ void mma_product(uint32_t a_base, int lda_bytes, int kts,
+                                            const uint2* __restrict__ bpk, int nt_tot, int kt0,
+                                            int nt0, int tasks, Epi epi) {
+  constexpr int KB = NT >= 3 ? 4 : 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t a_lane = a_base + (lane & 15) * lda_bytes + (lane >> 4) * 16;
+  for (int task = warp; task < tasks; task += kWarps) {
+    float acc[NT][MT][4];
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const float rg = sigmoidf(gi[0][r] + gh[0][r]);
-        const float zg = sigmoidf(gi[1][r] + gh[1][r]);
-        const float ng = tanhf(gi[2][r] + rg * gh[2][r]);
-        const float hn = (1.f - zg) * ng + zg * sh[r * H + j];
-        shn[r * H + j] = hn;
-        if (r < nr) hs[((size_t)(r0 + r) * T + t) * H + j] = hn;
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][m][i] = 0.f;
+    const uint2* bt = bpk + ((size_t)kt0 * nt_tot + nt0 + task * NT) * 32 + lane;
+    uint2 b[KB][NT], nb[KB][NT];
+    auto load = [&](uint2(&dst)[KB][NT], int k0) {
+#pragma unroll
+      for (int d = 0; d < KB; ++d)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          dst[d][n] = k0 + d < kts ? __ldg(bt + ((size_t)(k0 + d) * nt_tot + n) * 32)
+                                   : make_uint2(0u, 0u);
+    };
+    load(b, 0);
+    for (int k0 = 0; k0 < kts; k0 += KB) {
+      load(nb, k0 + KB);  // in flight during this batch's products
+#pragma unroll
+      for (int d = 0; d < KB; ++d) {
+        if (k0 + d >= kts) break;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          uint4 a;
+          ldmatrix4(a, a_lane + m * 16 * lda_bytes + (k0 + d) * 32);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mma(acc[n][m], a, b[d][n]);
+        }
       }
+#pragma unroll
+      for (int d = 0; d < KB; ++d)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) b[d][n] = nb[d][n];
     }
-    __syncthreads();
+    epi(task, acc);
   }
 }
 
-// ------------------------------------------------------------ backward, pass 1
-template <typename W, int RT>
-__global__ void __launch_bounds__(256) train_bwd_recurrence_kernel(
-    const W* __restrict__ feats, const W* __restrict__ att1, const float* __restrict__ h0,
-    const float* __restrict__ embeds, const W* __restrict__ ua_w,
-    const float* __restrict__ ua_b, const float* __restrict__ va, const W* __restrict__ wih,
-    const W* __restrict__ whh, const float* __restrict__ bih, const float* __restrict__ bhh,
-    const float* __restrict__ hs, const float* __restrict__ g, W* __restrict__ d_feats,
-    W* __restrict__ d_att1, float* __restrict__ d_h0, float* __restrict__ d_emb,
-    float* __restrict__ X, float* __restrict__ DGI, float* __restrict__ HP,
-    float* __restrict__ DGHN, float* __restrict__ DATT2, float* __restrict__ dva_part,
-    int B, int T, int R, int F, int E, int H) {
-  using C = Cvt<W>;
-  extern __shared__ float smem[];
-  const int In = E + F, G = 3 * H;
-  float* sh = smem;              // [RT, H]   h_{t-1}
-  float* shc = sh + RT * H;      // [RT, H]   h_{t-1} rounded to W
-  float* sx = shc + RT * H;      // [RT, In]  x = [word, ctx]
-  float* sxc = sx + RT * In;     // [RT, In]  x rounded to W
-  float* sa2 = sxc + RT * In;    // [RT, H]   att2
-  float* sw = sa2 + RT * H;      // [RT, R]   attention weights
-  float* sdh = sw + RT * R;      // [RT, H]   dL/dh_t carried back from step t+1
-  float* sdhp = sdh + RT * H;    // [RT, H]   dL/dh_{t-1}, being summed
-  float* sdgi = sdhp + RT * H;   // [RT, G]   dgi rounded to W
-  float* sdgh = sdgi + RT * G;   // [RT, G]   dgh rounded to W
-  float* sdx = sdgh + RT * G;    // [RT, In]  dx = dgi . w_ih
-  float* sdxc = sdx + RT * In;   // [RT, In]  dx rounded to W
-  float* sdw = sdxc + RT * In;   // [RT, R]   dL/d(attention weights)
-  float* sds = sdw + RT * R;     // [RT, R]   dL/d(scores)
-  float* sdat = sds + RT * R;    // [RT, H]   datt2 (W-valued)
-  float* sdva = sdat + RT * H;   // [H]       this block's d(v_a)
-  const int r0 = blockIdx.x * RT, nr = min(RT, B - r0);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-
-  for (int e = tid; e < RT * H; e += nt) sdh[e] = 0.f;
-  for (int j = tid; j < H; j += nt) sdva[j] = 0.f;
-
-  for (int t = T - 1; t >= 0; --t) {
-    const bool first = t == T - 1;
-    if (t == 0)
-      load_step<W, RT>(h0, r0, H, embeds, 0, T, sh, shc, sx, sxc, r0, nr, E, F, H);
-    else
-      load_step<W, RT>(hs + (size_t)(t - 1) * H, r0, (size_t)T * H, embeds, t, T, sh, shc,
-                       sx, sxc, r0, nr, E, F, H);
-    __syncthreads();
-    attend<W, RT>(feats, att1, ua_w, ua_b, va, shc, sx, sxc, sa2, sw, r0, nr, R, F, E, H);
-
-    // the pass-2 rows of x and h_{t-1}
-    for (int e = tid; e < nr * In; e += nt) {
-      const int r = e / In, i = e % In;
-      X[((size_t)t * B + r0 + r) * In + i] = sx[r * In + i];
-    }
-    for (int e = tid; e < nr * H; e += nt) {
-      const int r = e / H, i = e % H;
-      HP[((size_t)t * B + r0 + r) * H + i] = sh[r * H + i];
-    }
-
-    // the GRU step and its backward, one thread per column j
-    for (int j = tid; j < H; j += nt) {
-      float gi[3][RT], gh[3][RT];
-      gates<W, RT>(wih, whh, bih, bhh, sxc, shc, j, In, H, gi, gh);
+// out = A . B on the CUDA cores in f32 for the M rows of A (f32, row-major
+// [M][lda] in shared memory, K a multiple of 8) and columns of the slice of
+// B (f32, row-major, `nb` contiguous columns from Bm, rows ldb apart, in
+// device memory).  The slice streams through `ring` in shared memory
+// (kStages stages of kDepth rows, ldr floats a row) by 16-byte cp.async,
+// kStages - 1 stages ahead of the FMAs.  Item (row block of RB rows, ci)
+// takes NV consecutive columns col(ci) + c cstride .. + NV - 1 for each of
+// NC column groups c (NC NV accumulators a row); thread tid takes items tid
+// + kThreads i, i < IT, all of them (IT kThreads >= items); epi(first row,
+// ci, acc) gets acc[c][r][v].  What bounds it is shared memory: an A value
+// is the same for a warp's threads (a broadcast, 4 bytes a wavefront), so
+// each one read serves NC NV columns, while the stage's B values are
+// distinct across the warp (NV of them in one load).
+template <int NV>
+__device__ __forceinline__ void ld_vec(const float* p, float (&v)[NV]) {
+  if constexpr (NV == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const float rg = sigmoidf(gi[0][r] + gh[0][r]);
-        const float zg = sigmoidf(gi[1][r] + gh[1][r]);
-        const float ng = tanhf(gi[2][r] + rg * gh[2][r]);
-        const float gt = r < nr ? g[((size_t)(r0 + r) * T + t) * H + j] : 0.f;
-        const float dh_new = gt + sdh[r * H + j];
-        const float dz = dh_new * (sh[r * H + j] - ng);
-        const float dn = dh_new * (1.f - zg);
-        const float dpre_n = dn * (1.f - ng * ng);
-        const float dr = dpre_n * gh[2][r];
-        const float dpre_r = dr * rg * (1.f - rg);
-        const float dpre_z = dz * zg * (1.f - zg);
-        const float dghn = dpre_n * rg;
-        sdhp[r * H + j] = dh_new * zg;
-        sdgi[r * G + j] = C::rnd(dpre_r);
-        sdgi[r * G + H + j] = C::rnd(dpre_z);
-        sdgi[r * G + 2 * H + j] = C::rnd(dpre_n);
-        sdgh[r * G + j] = C::rnd(dpre_r);
-        sdgh[r * G + H + j] = C::rnd(dpre_z);
-        sdgh[r * G + 2 * H + j] = C::rnd(dghn);
-        if (r < nr) {
-          float* dgi_row = DGI + ((size_t)t * B + r0 + r) * G;
-          dgi_row[j] = dpre_r;
-          dgi_row[H + j] = dpre_z;
-          dgi_row[2 * H + j] = dpre_n;
-          DGHN[((size_t)t * B + r0 + r) * H + j] = dghn;
+    for (int i = 0; i < NV; ++i) v[i] = p[i];
+  }
+}
+
+template <int RB, int NC, int NV, int IT, class Col, class Epi>
+__device__ __forceinline__ void fma_product(const float* A, int lda, int M, int K,
+                                            const float* __restrict__ Bm, int ldb, int nb,
+                                            float* ring, int ldr, int ncols, Col col,
+                                            int cstride, Epi epi) {
+  const int tid = threadIdx.x, items = (M / RB) * ncols;
+  float acc[IT][NC][RB][NV];
+  int rb[IT], bc[IT];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int item = min(tid + it * kThreads, max(items - 1, 0));
+    rb[it] = item / max(ncols, 1), bc[it] = col(item - rb[it] * ncols);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int v = 0; v < NV; ++v) acc[it][c][r][v] = 0.f;
+  }
+  const int steps = K / kDepth, n4 = nb / 4;
+  auto issue = [&](int st) {
+    float* dst = ring + (st % kStages) * kDepth * ldr;
+    for (int e = tid; e < kDepth * n4; e += kThreads) {
+      const int d = e / n4, q = e - d * n4;
+      hopper::cp_async16(hopper::smem_addr(dst + d * ldr + 4 * q),
+                         Bm + (size_t)(st * kDepth + d) * ldb + 4 * q, true);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) issue(st);
+    hopper::cp_async_commit();
+  }
+  for (int st = 0; st < steps; ++st) {
+    hopper::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage st is in; every thread is past stage st - 1's FMAs
+    if (st + kStages - 1 < steps) issue(st + kStages - 1);
+    hopper::cp_async_commit();
+    const float* sb = ring + (st % kStages) * kDepth * ldr;
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      if (tid + it * kThreads >= items) break;
+      const float* ar = A + rb[it] * RB * lda + st * kDepth;
+#pragma unroll
+      for (int q = 0; q < kDepth / 4; ++q) {
+        float bv[4][NC][NV];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            ld_vec<NV>(sb + (4 * q + i) * ldr + bc[it] + c * cstride, bv[i][c]);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float4 av = *reinterpret_cast<const float4*>(ar + r * lda + 4 * q);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int v = 0; v < NV; ++v) {
+              float x = acc[it][c][r][v];
+              x = fmaf(av.x, bv[0][c][v], x);
+              x = fmaf(av.y, bv[1][c][v], x);
+              x = fmaf(av.z, bv[2][c][v], x);
+              acc[it][c][r][v] = fmaf(av.w, bv[3][c][v], x);
+            }
         }
       }
     }
-    __syncthreads();
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the next product
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int item = tid + it * kThreads;
+    if (item < items) epi(rb[it] * RB, item - rb[it] * ncols, acc[it]);
+  }
+}
 
-    // dx = rnd(dgi) . w_ih (rows of w_ih^T) and dh += rnd(dgh) . w_hh: one
-    // warp per input index, lanes along the gates
-    for (int p = warp; p < In + H; p += nw) {
-      const bool is_x = p < In;
-      const int i = is_x ? p : p - In;
-      const W* wr = is_x ? wih + (size_t)i * G : whh + (size_t)i * G;
-      const float* d = is_x ? sdgi : sdgh;
-      float acc[RT];
+// The operands of both recurrence kernels.  Weights: `wx` = w_ih^T with
+// each group's r, z, n columns side by side [In][U 24], `wh` = [w_hh^T |
+// U_a] likewise [H][U 32], `wxr` = [w_ih^T | 0]^T [U 32][In], `whr` = wh^T
+// [U 32][H]: row-major f32, or, with bf16 weights, packed as mma.sync B
+// fragments (train_kernel.pack_recurrence).
+template <typename W>
+struct Args {
+  const W *feats, *att1;
+  const float *h0, *embeds, *ua_b, *va, *bih, *bhh;
+  const void *wx, *wh, *wxr, *whr;
+  const float *hs_in, *g;                           // backward
+  float* hs;                                        // forward
+  W* d_att1;                                        // backward, from here
+  float *d_h0, *d_emb, *X, *DGI, *HP, *DGHN, *DATT2, *dva_part, *w_t;
+  W* dctx_t;
+  int B, T, R, F, E, H;
+  int skip;  // parts left out, for timing them (kSkip*); 0 computes the function
+};
+
+// One CTA of a cluster: its rows, groups, shared memory and the phases of a
+// step.  Phases that read a peer's shared memory run between two cluster
+// barriers that also order the peer's writes before and after.
+template <typename W, int C>
+struct Cta {
+  static constexpr bool kBf16 = std::is_same<W, __nv_bfloat16>::value;
+  static constexpr int M = kRowsA * C, MT = M / 16;
+  static constexpr int V = Vec<W>::N;
+  static constexpr int kChunks = (kMaxH / V + 31) / 32;  // 16-byte chunks of a row a lane
+  using Cv = Cvt<W>;
+
+  const Args<W>& a;
+  cg::cluster_group cl;
+  Layout L;
+  unsigned char* sm;
+  int B, T, R, F, E, H, In, G, U, NG, Rp;
+  int c, u0, ng, row0, b0, nr;
+  int tid, lane, warp;
+  W *ah, *ax, *adg_i, *adg_h;
+  float *P, *gh, *hown, *dh, *a2, *xpub, *att2, *w, *dw, *ds, *dva, *vac, *ring;
+
+  __device__ Cta(const Args<W>& args, unsigned char* smem, bool bwd)
+      : a(args), cl(cg::this_cluster()), sm(smem) {
+    B = a.B, T = a.T, R = a.R, F = a.F, E = a.E, H = a.H;
+    In = E + F, G = 3 * H, U = H / kUnits;
+    L = layout(bwd, kBf16, C, R, F, E, H);
+    NG = L.ng, Rp = (R + 3) & ~3;
+    c = (int)cl.block_rank();
+    u0 = group_start(c, C, U), ng = group_start(c + 1, C, U) - u0;
+    row0 = (int)(blockIdx.x / C) * M;
+    b0 = row0 + kRowsA * c;
+    nr = max(0, min(kRowsA, B - b0));
+    tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    ah = reinterpret_cast<W*>(sm + L.ah);
+    ax = reinterpret_cast<W*>(sm + L.ax);
+    P = reinterpret_cast<float*>(sm + L.ax);
+    adg_i = reinterpret_cast<W*>(sm + L.adg_i);
+    adg_h = reinterpret_cast<W*>(sm + L.adg_h);
+    gh = reinterpret_cast<float*>(sm + L.gh);
+    hown = reinterpret_cast<float*>(sm + L.hown);
+    dh = reinterpret_cast<float*>(sm + L.dh);
+    a2 = reinterpret_cast<float*>(sm + L.a2);
+    xpub = reinterpret_cast<float*>(sm + L.xpub);
+    att2 = reinterpret_cast<float*>(sm + L.att2);
+    w = reinterpret_cast<float*>(sm + L.w);
+    dw = reinterpret_cast<float*>(sm + L.dw);
+    ds = reinterpret_cast<float*>(sm + L.ds);
+    dva = reinterpret_cast<float*>(sm + L.dva);
+    vac = reinterpret_cast<float*>(sm + L.vac);
+    ring = reinterpret_cast<float*>(sm + L.ring);
+  }
+
+  template <typename T_>
+  __device__ T_* peer(T_* p, int rank) {
+    return cl.map_shared_rank(p, rank);
+  }
+
+  // every byte 0 (the padding of the A operands stays 0 for all steps), then
+  // rnd(v_a)
+  __device__ void zero_smem() {
+    uint4* p = reinterpret_cast<uint4*>(sm);
+    for (int i = tid; i < L.total / 16; i += kThreads) p[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+    for (int j = tid; j < H; j += kThreads) vac[j] = Cv::rnd(__ldg(a.va + j));
+  }
+
+  // h of all M rows from device memory (row b at src[b * stride]; rows past
+  // B are 0): rnd(h) into ah, the own units in f32 into hown
+  __device__ void load_h(const float* __restrict__ src, size_t stride) {
+    const int n4 = H / 4;
+    for (int e = tid; e < M * n4; e += kThreads) {
+      const int m = e / n4, j = (e - m * n4) * 4, row = row0 + m;
+      const float4 v = row < B ? __ldg(reinterpret_cast<const float4*>(src + row * stride + j))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      put4(ah + m * L.ldh + j, make_float4(Cv::rnd(v.x), Cv::rnd(v.y), Cv::rnd(v.z), Cv::rnd(v.w)));
+      const int u = j >> 3;
+      if (u >= u0 && u < u0 + ng)
+        *reinterpret_cast<float4*>(hown + m * NG * 8 + (u - u0) * 8 + (j & 7)) = v;
+    }
+  }
+
+  // h of all M rows from the owners of the units (the forward's next step)
+  __device__ void gather_h() {
+    const int n4 = H / 4;
+    for (int e = tid; e < M * n4; e += kThreads) {
+      const int m = e / n4, j = (e - m * n4) * 4, u = j >> 3, o = group_owner(u, C, U);
+      const float4 v = *reinterpret_cast<const float4*>(
+          peer(hown, o) + m * NG * 8 + (u - group_start(o, C, U)) * 8 + (j & 7));
+      put4(ah + m * L.ldh + j, make_float4(Cv::rnd(v.x), Cv::rnd(v.y), Cv::rnd(v.z), Cv::rnd(v.w)));
+    }
+  }
+
+  // 1. [gh | att2] = rnd(h) [w_hh^T | U_a] for the own groups: gh + b_hh into
+  // gh, rnd(att2 + b) into a2
+  __device__ void h_product() {
+    auto put = [&](int m, int col, float v) {
+      const int ul = col >> 5, slot = (col >> 3) & 3, k = col & 7, j = (u0 + ul) * kUnits + k;
+      if (slot < 3)
+        gh[m * NG * 24 + ul * 24 + slot * 8 + k] = v + a.bhh[slot * H + j];
+      else
+        a2[m * NG * 8 + ul * 8 + k] = Cv::rnd(v + a.ua_b[j]);
+    };
+    if constexpr (kBf16) {
+      mma_product<MT, 4>(hopper::smem_addr(ah), L.ldh * 2, ktiles(H),
+                         static_cast<const uint2*>(a.wh), U * 4, 0, 4 * u0, ng,
+                         [&](int task, float (&acc)[4][MT][4]) {
 #pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] = 0.f;
-      for (int k = lane; k < G; k += 32) {
-        const float w = to_f(wr[k]);
+                           for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int r = 0; r < RT; ++r) acc[r] += d[r * G + k] * w;
+                             for (int m = 0; m < MT; ++m)
+#pragma unroll
+                               for (int i = 0; i < 4; ++i)
+                                 put(m * 16 + (lane >> 2) + 8 * (i >> 1),
+                                     task * 32 + n * 8 + 2 * (lane & 3) + (i & 1), acc[n][m][i]);
+                         });
+    } else {
+      fma_product<8, 1, 4, 1>(
+          reinterpret_cast<const float*>(ah), L.ldh, M, H,
+          static_cast<const float*>(a.wh) + u0 * 32, U * 32, ng * 32, ring, L.ldr, ng * 8,
+          [](int ci) { return 4 * ci; }, 0, [&](int r0, int ci, float (&acc)[1][8][4]) {
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+              for (int v = 0; v < 4; ++v) put(r0 + r, 4 * ci + v, acc[0][r][v]);
+          });
+    }
+  }
+
+  // att2 of the 8 rows from the owners of its columns
+  __device__ void gather_att2() {
+    const int n4 = H / 4;
+    for (int e = tid; e < kRowsA * n4; e += kThreads) {
+      const int r = e / n4, j = (e - r * n4) * 4, u = j >> 3, o = group_owner(u, C, U);
+      *reinterpret_cast<float4*>(att2 + r * H + j) = *reinterpret_cast<const float4*>(
+          peer(a2, o) + (kRowsA * c + r) * NG * 8 + (u - group_start(o, C, U)) * 8 + (j & 7));
+    }
+  }
+
+  // 2. the attention of the 8 rows: scores, softmax (weights in w), the
+  // context rnd(sum rnd(rnd(w) feats)) into xpub (rows past B: 0) and, in
+  // the backward, into the pass-2 rows X
+  __device__ void attend(int t, bool bwd) {
+    const int nv = H / V;
+    for (int p0 = warp * kPairs; p0 < ((a.skip & kSkipScores) ? 0 : nr * R);
+         p0 += kWarps * kPairs) {
+      float x[kPairs][kChunks][V];  // att1 of kPairs (row, region) pairs, loaded together
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        const int p = min(p0 + q, nr * R - 1), r = p / R, rho = p - r * R;
+        const W* a1 = a.att1 + ((size_t)(b0 + r) * R + rho) * H;
+#pragma unroll
+        for (int ch = 0; ch < kChunks; ++ch)
+          if (lane + 32 * ch < nv) Vec<W>::ldg(a1 + (lane + 32 * ch) * V, x[q][ch]);
       }
 #pragma unroll
-      for (int r = 0; r < RT; ++r) acc[r] = warp_sum(acc[r]);
-      if (lane == 0) {
+      for (int q = 0; q < kPairs; ++q) {
+        const int p = p0 + q, r = min(p, nr * R - 1) / R;
+        float s = 0.f;
 #pragma unroll
-        for (int r = 0; r < RT; ++r) {
-          if (is_x) {
-            sdx[r * In + i] = acc[r];
-            sdxc[r * In + i] = C::rnd(acc[r]);
-          } else {
-            sdhp[r * H + i] += acc[r];
+        for (int ch = 0; ch < kChunks; ++ch) {
+          if (lane + 32 * ch >= nv) break;
+          const int j = (lane + 32 * ch) * V;
+          float a2v[V], vv[V];
+          ld_floats(att2 + r * H + j, a2v);
+          ld_floats(vac + j, vv);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float v = Cv::rnd(tanhf(Cv::rnd(x[q][ch][i] + a2v[i])));
+            s += Cv::rnd(v * vv[i]);
+          }
+        }
+        s = warp_sum(s);
+        if (lane == 0 && p < nr * R) w[r * Rp + p - r * R] = Cv::rnd(s);
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < nr; r += kWarps) {  // softmax over regions, in f32
+      float mx = -INFINITY;
+      for (int rho = lane; rho < R; rho += 32) mx = fmaxf(mx, w[r * Rp + rho]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int rho = lane; rho < R; rho += 32) {
+        const float e = expf(w[r * Rp + rho] - mx);
+        w[r * Rp + rho] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int rho = lane; rho < R; rho += 32) w[r * Rp + rho] = w[r * Rp + rho] / sum;
+    }
+    __syncthreads();
+    const int fv = F / V;
+    for (int e = tid; e < ((a.skip & kSkipContext) ? 0 : kRowsA * fv);
+         e += kThreads) {  // the context, V features a thread
+      const int r = e / fv, f = (e - r * fv) * V;
+      float acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0.f;
+      if (r < nr) {
+        const W* fp = a.feats + (size_t)(b0 + r) * R * F + f;
+        for (int rho0 = 0; rho0 < R; rho0 += kRegions) {
+          float v[kRegions][V];
+#pragma unroll
+          for (int q = 0; q < kRegions; ++q)
+            if (rho0 + q < R) Vec<W>::ldg(fp + (size_t)(rho0 + q) * F, v[q]);
+#pragma unroll
+          for (int q = 0; q < kRegions; ++q) {
+            if (rho0 + q >= R) break;
+            const float wr = Cv::rnd(w[r * Rp + rho0 + q]);
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[i] += Cv::rnd(wr * v[q][i]);
           }
         }
       }
-    }
-    __syncthreads();
-
-    // d_emb (the word of step t is embeds[b, t-1]; step 0's zero word has none)
-    for (int e = tid; e < nr * E; e += nt) {
-      const int r = e / E, j = e % E;
-      float* de = d_emb + (size_t)(r0 + r) * T * E + j;
-      if (t > 0) de[(size_t)(t - 1) * E] = sdx[r * In + j];
-      if (first) de[(size_t)(T - 1) * E] = 0.f;
-    }
-    // dw[rho] = rnd(dctx . feats[rho]): one warp per (row, region)
-    for (int p = warp; p < nr * R; p += nw) {
-      const int r = p / R, rho = p % R;
-      const W* fr = feats + ((size_t)(r0 + r) * R + rho) * F;
-      float s = 0.f;
-      for (int f = lane; f < F; f += 32) s += C::rnd(sdxc[r * In + E + f] * to_f(fr[f]));
-      s = warp_sum(s);
-      if (lane == 0) sdw[r * R + rho] = C::rnd(s);
-    }
-    // d_feats += rnd(rnd(w) * dctx), accumulated in W
-    for (int e = tid; e < nr * F; e += nt) {
-      const int r = e / F, f = e % F;
-      const float dc = sdxc[r * In + E + f];
-      W* df = d_feats + (size_t)(r0 + r) * R * F + f;
-      for (int rho = 0; rho < R; ++rho) {
-        const float v = C::rnd(C::rnd(sw[r * R + rho]) * dc);
-        const float old = first ? 0.f : to_f(df[(size_t)rho * F]);
-        df[(size_t)rho * F] = C::to_w(old + v);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        acc[i] = Cv::rnd(acc[i]);
+        xpub[r * F + f + i] = acc[i];
+      }
+      if (bwd && r < nr) {
+        float* xr = a.X + ((size_t)t * B + b0 + r) * In + E + f;
+#pragma unroll
+        for (int i = 0; i < V; ++i) xr[i] = acc[i];
       }
     }
-    __syncthreads();
-
-    for (int r = warp; r < nr; r += nw) {  // ds = w * (dw - sum(w * dw)), in f32
-      float s = 0.f;
-      for (int rho = lane; rho < R; rho += 32) s += sw[r * R + rho] * sdw[r * R + rho];
-      s = warp_sum(s);
-      for (int rho = lane; rho < R; rho += 32)
-        sds[r * R + rho] = sw[r * R + rho] * (sdw[r * R + rho] - s);
-    }
-    __syncthreads();
-
-    // the attention backward per column j: d_att1, datt2 and d(v_a)
-    for (int j = tid; j < H; j += nt) {
-      const float vac = C::rnd(va[j]);
-      float dva = sdva[j];
-      for (int r = 0; r < nr; ++r) {
-        const W* a1 = att1 + (size_t)(r0 + r) * R * H + j;
-        W* da1 = d_att1 + (size_t)(r0 + r) * R * H + j;
-        float dat = 0.f;
-        for (int rho = 0; rho < R; ++rho) {
-          const float a = C::rnd(tanhf(C::rnd(to_f(a1[(size_t)rho * H]) + sa2[r * H + j])));
-          const float ds = sds[r * R + rho];
-          const float da = C::rnd(C::rnd(ds) * vac);
-          const float de = C::rnd(da * C::rnd(1.f - C::rnd(a * a)));
-          const float old = first ? 0.f : to_f(da1[(size_t)rho * H]);
-          da1[(size_t)rho * H] = C::to_w(old + de);
-          dat += de;
-          dva += a * ds;
-        }
-        dat = C::rnd(dat);
-        sdat[r * H + j] = dat;
-        DATT2[((size_t)t * B + r0 + r) * H + j] = dat;
-      }
-      sdva[j] = dva;
-    }
-    __syncthreads();
-
-    // dh_{t-1} += datt2 . U_a^T: one warp per index of h
-    for (int p = warp; p < H * nr; p += nw) {
-      const int r = p / H, i = p % H;
-      const W* wr = ua_w + (size_t)i * H;
-      float acc = 0.f;
-      for (int k = lane; k < H; k += 32) acc += sdat[r * H + k] * to_f(wr[k]);
-      acc = warp_sum(acc);
-      if (lane == 0) sdh[r * H + i] = sdhp[r * H + i] + acc;
-    }
-    __syncthreads();
   }
 
-  for (int e = tid; e < nr * H; e += nt) d_h0[(size_t)r0 * H + e] = sdh[e];
-  for (int j = tid; j < H; j += nt) dva_part[(size_t)blockIdx.x * H + j] = sdva[j];
+  // x = [word | ctx] of all M rows into ax, rounded: the words from device
+  // memory (zero at t = 0 and past B), the contexts from their rows' CTAs;
+  // bf16: zeros in the depths past In of the last k16 tile (the backward's
+  // partial sums P have been there since)
+  __device__ void gather_x(int t) {
+    const int e4 = E / 4, f4 = F / 4;
+    if constexpr (kBf16) {
+      const int p4 = (ktiles(In) * 16 - In) / 4;
+      for (int e = tid; e < M * p4; e += kThreads)
+        put4(ax + (e / p4) * L.ldx + In + (e % p4) * 4, make_float4(0.f, 0.f, 0.f, 0.f));
+    }
+    for (int e = tid; e < M * e4; e += kThreads) {
+      const int m = e / e4, i = (e - m * e4) * 4, row = row0 + m;
+      const float4 v =
+          row < B && t > 0
+              ? __ldg(reinterpret_cast<const float4*>(a.embeds + ((size_t)row * T + t - 1) * E + i))
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+      put4(ax + m * L.ldx + i, make_float4(Cv::rnd(v.x), Cv::rnd(v.y), Cv::rnd(v.z), Cv::rnd(v.w)));
+    }
+    for (int e = tid; e < M * f4; e += kThreads) {
+      const int m = e / f4, f = (e - m * f4) * 4;
+      put4(ax + m * L.ldx + E + f, *reinterpret_cast<const float4*>(
+                                        peer(xpub, m / kRowsA) + (m % kRowsA) * F + f));
+    }
+  }
+
+  // 3. gi = rnd(x) w_ih^T for the own groups; epi(m, group, unit, gi_r,
+  // gi_z, gi_n) for each (row, own unit)
+  template <class Epi>
+  __device__ void x_product(Epi epi) {
+    if constexpr (kBf16) {
+      mma_product<MT, 3>(hopper::smem_addr(ax), L.ldx * 2, ktiles(In),
+                         static_cast<const uint2*>(a.wx), U * 3, 0, 3 * u0, ng,
+                         [&](int task, float (&acc)[3][MT][4]) {
+#pragma unroll
+                           for (int m = 0; m < MT; ++m)
+#pragma unroll
+                             for (int i = 0; i < 4; ++i)
+                               epi(m * 16 + (lane >> 2) + 8 * (i >> 1), task,
+                                   2 * (lane & 3) + (i & 1), acc[0][m][i], acc[1][m][i],
+                                   acc[2][m][i]);
+                         });
+    } else {
+      fma_product<8, 3, 1, 1>(
+          reinterpret_cast<const float*>(ax), L.ldx, M, In,
+          static_cast<const float*>(a.wx) + u0 * 24, U * 24, ng * 24, ring, L.ldr, ng * 8,
+          [](int ci) { return (ci >> 3) * 24 + (ci & 7); }, 8,
+          [&](int r0, int ci, float (&acc)[3][8][1]) {
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              epi(r0 + r, ci >> 3, ci & 7, acc[0][r][0], acc[1][r][0], acc[2][r][0]);
+          });
+    }
+  }
+
+  // the GRU gates of (row m, unit k of own group ul) from gi (no bias) and gh
+  __device__ __forceinline__ void gates(int m, int ul, int k, float gir, float giz, float gin,
+                                        float& rg, float& zg, float& ngate, float& hn) {
+    const int j = (u0 + ul) * kUnits + k;
+    const float* g3 = gh + m * NG * 24 + ul * 24 + k;
+    hn = g3[16];
+    rg = sigmoidf((gir + a.bih[j]) + g3[0]);
+    zg = sigmoidf((giz + a.bih[H + j]) + g3[8]);
+    ngate = tanhf((gin + a.bih[2 * H + j]) + rg * hn);
+  }
+
+  // the forward's GRU: h' into hs and hown (rows past B keep 0)
+  __device__ void step_fwd(int t) {
+    x_product([&](int m, int ul, int k, float gir, float giz, float gin) {
+      float rg, zg, ngate, hn;
+      gates(m, ul, k, gir, giz, gin, rg, zg, ngate, hn);
+      const int row = row0 + m;
+      if (row >= B) return;
+      float* hp = hown + m * NG * 8 + ul * 8 + k;
+      const float h1 = (1.f - zg) * ngate + zg * *hp;
+      *hp = h1;
+      a.hs[((size_t)row * T + t) * H + (u0 + ul) * kUnits + k] = h1;
+    });
+  }
+
+  // the backward's GRU step and its backward: dgi, dgh (rounded) into the A
+  // operands, the pass-2 rows DGI and DGHN, and dL/dh_new z into dh
+  __device__ void step_bwd(int t) {
+    x_product([&](int m, int ul, int k, float gir, float giz, float gin) {
+      float rg, zg, ngate, hn;
+      gates(m, ul, k, gir, giz, gin, rg, zg, ngate, hn);
+      const int row = row0 + m, j = (u0 + ul) * kUnits + k;
+      const bool valid = row < B;
+      const float gt = valid ? a.g[((size_t)row * T + t) * H + j] : 0.f;
+      float* dhp = dh + m * NG * 8 + ul * 8 + k;
+      const float dhn = gt + *dhp;
+      const float dz = dhn * (hown[m * NG * 8 + ul * 8 + k] - ngate);
+      const float dn = dhn * (1.f - zg);
+      const float dpre_n = dn * (1.f - ngate * ngate);
+      const float dr = dpre_n * hn;
+      const float dpre_r = dr * rg * (1.f - rg);
+      const float dpre_z = dz * zg * (1.f - zg);
+      const float dghn = dpre_n * rg;
+      *dhp = dhn * zg;
+      W* di = adg_i + m * L.ldg + ul * 32 + k;
+      W* dg = adg_h + m * L.ldg + ul * 32 + k;
+      di[0] = dg[0] = Cv::to_w(dpre_r);
+      di[8] = dg[8] = Cv::to_w(dpre_z);
+      di[16] = Cv::to_w(dpre_n);
+      dg[16] = Cv::to_w(dghn);
+      if (valid) {
+        float* drow = a.DGI + ((size_t)t * B + row) * G;
+        drow[j] = dpre_r;
+        drow[H + j] = dpre_z;
+        drow[2 * H + j] = dpre_n;
+        a.DGHN[((size_t)t * B + row) * H + j] = dghn;
+      }
+    });
+  }
+
+  // P[M][n0 .. n0 + ncols) = A_rev . (the own groups' rows of wr), A_rev =
+  // adg_i or adg_h: this CTA's partial sum over its groups
+  __device__ void rev_product(const W* A, const void* wr, int n_full, int n0, int ncols) {
+    if constexpr (kBf16) {
+      mma_product<MT, 1>(hopper::smem_addr(A), L.ldg * 2, 2 * ng,
+                         static_cast<const uint2*>(wr), n_full / 8, 2 * u0, n0 / 8, ncols / 8,
+                         [&](int task, float (&acc)[1][MT][4]) {
+#pragma unroll
+                           for (int m = 0; m < MT; ++m)
+#pragma unroll
+                             for (int i = 0; i < 4; ++i)
+                               P[(m * 16 + (lane >> 2) + 8 * (i >> 1)) * L.ldp + task * 8 +
+                                 2 * (lane & 3) + (i & 1)] = acc[0][m][i];
+                         });
+    } else {
+      constexpr int RB = M / 4;  // 200 items at N = 200
+      fma_product<RB, 1, 4, 2>(reinterpret_cast<const float*>(A), L.ldg, M, ng * 32,
+                               static_cast<const float*>(wr) + (size_t)u0 * 32 * n_full + n0,
+                               n_full, ncols, ring, L.ldr, ncols / 4,
+                               [](int ci) { return 4 * ci; }, 0,
+                               [&](int r0, int ci, float (&acc)[1][RB][4]) {
+#pragma unroll
+                                 for (int r = 0; r < RB; ++r)
+                                   *reinterpret_cast<float4*>(P + (r0 + r) * L.ldp + 4 * ci) =
+                                       make_float4(acc[0][r][0], acc[0][r][1], acc[0][r][2],
+                                                   acc[0][r][3]);
+                               });
+    }
+  }
+
+  // out(r, i, sum) for the 8 rows and i < n (4 at a time): the sum of the C
+  // CTAs' P, added in rank order
+  template <class Out>
+  __device__ void reduce_rows(int n, Out out) {
+    const int n4 = n / 4;
+    for (int e = tid; e < nr * n4; e += kThreads) {
+      const int r = e / n4, i = (e - r * n4) * 4;
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int o = 0; o < C; ++o) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(peer(P, o) + (kRowsA * c + r) * L.ldp + i);
+        s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+      }
+      out(r, i, s);
+    }
+  }
+
+  // dh (own units, all M rows) += the sum of the C CTAs' P, in rank order
+  __device__ void reduce_cols() {
+    const int n4 = ng * 2;
+    for (int e = tid; e < M * n4; e += kThreads) {
+      const int m = e / n4, ul = (e - m * n4) * 4;
+      float4* d = reinterpret_cast<float4*>(dh + m * NG * 8 + ul);
+      float4 s = *d;
+      for (int o = 0; o < C; ++o) {
+        const float4 v = *reinterpret_cast<const float4*>(peer(P, o) + m * L.ldp + u0 * 8 + ul);
+        s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+      }
+      *d = s;
+    }
+  }
+
+  // the backward's pass-2 rows of the 8 rows that need no product: HP =
+  // h_{t-1} and the word part of X
+  __device__ void write_rows(int t, const float* __restrict__ src, size_t stride) {
+    const int h4 = H / 4, e4 = E / 4;
+    for (int e = tid; e < nr * h4; e += kThreads) {
+      const int r = e / h4, j = (e - r * h4) * 4;
+      *reinterpret_cast<float4*>(a.HP + ((size_t)t * B + b0 + r) * H + j) =
+          __ldg(reinterpret_cast<const float4*>(src + (b0 + r) * stride + j));
+    }
+    for (int e = tid; e < nr * e4; e += kThreads) {
+      const int r = e / e4, i = (e - r * e4) * 4;
+      *reinterpret_cast<float4*>(a.X + ((size_t)t * B + b0 + r) * In + i) =
+          t > 0 ? __ldg(reinterpret_cast<const float4*>(a.embeds +
+                                                         ((size_t)(b0 + r) * T + t - 1) * E + i))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  // the attention backward of the 8 rows from rnd(dctx) in xpub: dw, ds, the
+  // fold's operands w_t and dctx_t, d_att1 (read-modify-write in W, V units
+  // a thread), datt2 = rnd(sum de) into a2 ([8][H]; rows past B 0) and
+  // DATT2, and d(v_a)
+  __device__ void attend_back(int t, bool first) {
+    const float* dctx = xpub;
+    float* dvar = xpub + kRowsA * F;
+    const int fv = F / V;
+    for (int p0 = warp * kPairs; p0 < nr * R; p0 += kWarps * kPairs) {  // dw = rnd(dctx . feats)
+      float x[kPairs][kChunks][V];
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        const int p = min(p0 + q, nr * R - 1), r = p / R, rho = p - r * R;
+        const W* fr = a.feats + ((size_t)(b0 + r) * R + rho) * F;
+#pragma unroll
+        for (int ch = 0; ch < kChunks; ++ch)
+          if (lane + 32 * ch < fv) Vec<W>::ldg(fr + (lane + 32 * ch) * V, x[q][ch]);
+      }
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        const int p = p0 + q, r = min(p, nr * R - 1) / R;
+        float s = 0.f;
+#pragma unroll
+        for (int ch = 0; ch < kChunks; ++ch) {
+          if (lane + 32 * ch >= fv) break;
+          float dc[V];
+          ld_floats(dctx + r * F + (lane + 32 * ch) * V, dc);
+#pragma unroll
+          for (int i = 0; i < V; ++i) s += Cv::rnd(dc[i] * x[q][ch][i]);
+        }
+        s = warp_sum(s);
+        if (lane == 0 && p < nr * R) dw[r * Rp + p - r * R] = Cv::rnd(s);
+      }
+    }
+    for (int e = tid; e < nr * F; e += kThreads) {
+      const int r = e / F, f = e - r * F;
+      a.dctx_t[((size_t)(b0 + r) * T + t) * F + f] = Cv::to_w(dctx[r * F + f]);
+    }
+    __syncthreads();
+    for (int r = warp; r < nr; r += kWarps) {  // ds = w (dw - sum w dw), in f32
+      float s = 0.f;
+      for (int rho = lane; rho < R; rho += 32) s += w[r * Rp + rho] * dw[r * Rp + rho];
+      s = warp_sum(s);
+      for (int rho = lane; rho < R; rho += 32) {
+        ds[r * Rp + rho] = w[r * Rp + rho] * (dw[r * Rp + rho] - s);
+        a.w_t[((size_t)(b0 + r) * T + t) * R + rho] = w[r * Rp + rho];
+      }
+    }
+    __syncthreads();
+    const int nv = H / V;
+    for (int e = tid; e < kRowsA * nv; e += kThreads) {
+      const int r = e / nv, j = (e - r * nv) * V;
+      float dat[V], dvv[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) dat[i] = dvv[i] = 0.f;
+      if (r < nr) {
+        float vc[V], at2[V];
+        ld_floats(vac + j, vc);
+        ld_floats(att2 + r * H + j, at2);
+        const W* a1 = a.att1 + (size_t)(b0 + r) * R * H + j;
+        W* da1 = a.d_att1 + (size_t)(b0 + r) * R * H + j;
+        constexpr int Q = kRegions / 2;
+        for (int rho0 = 0; rho0 < R; rho0 += Q) {
+          float x[Q][V], acc[Q][V];  // Q regions' att1 and d_att1, loaded together
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            if (rho0 + q >= R) break;
+            Vec<W>::ldg(a1 + (size_t)(rho0 + q) * H, x[q]);
+            if (first) {
+#pragma unroll
+              for (int i = 0; i < V; ++i) acc[q][i] = 0.f;
+            } else {
+              Vec<W>::ld(da1 + (size_t)(rho0 + q) * H, acc[q]);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            if (rho0 + q >= R) break;
+            const float dsv = ds[r * Rp + rho0 + q], dsc = Cv::rnd(dsv);
+#pragma unroll
+            for (int i = 0; i < V; ++i) {
+              const float av = Cv::rnd(tanhf(Cv::rnd(x[q][i] + at2[i])));
+              const float da = Cv::rnd(dsc * vc[i]);
+              const float de = Cv::rnd(da * Cv::rnd(1.f - Cv::rnd(av * av)));
+              acc[q][i] += de;
+              dat[i] += de;
+              dvv[i] += av * dsv;
+            }
+            Vec<W>::st(da1 + (size_t)(rho0 + q) * H, acc[q]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        dvar[r * H + j + i] = dvv[i];
+        dat[i] = Cv::rnd(dat[i]);
+        a2[r * H + j + i] = dat[i];
+      }
+      if (r < nr) {
+        float* d2 = a.DATT2 + ((size_t)t * B + b0 + r) * H + j;
+#pragma unroll
+        for (int i = 0; i < V; ++i) d2[i] = dat[i];
+      }
+    }
+    __syncthreads();
+    for (int j = tid; j < H; j += kThreads) {
+      float s = dva[j];
+      for (int r = 0; r < nr; ++r) s += dvar[r * H + j];
+      dva[j] = s;
+    }
+  }
+
+  // rnd(datt2) of all M rows and the own units into the 4th slot of adg_h
+  __device__ void gather_datt2() {
+    const int n4 = ng * 2;
+    for (int e = tid; e < M * n4; e += kThreads) {
+      const int m = e / n4, ul = (e - m * n4) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(peer(a2, m / kRowsA) +
+                                                        (m % kRowsA) * H + u0 * 8 + ul);
+      put4(adg_h + m * L.ldg + (ul >> 3) * 32 + 24 + (ul & 7), v);
+    }
+  }
+};
+
+template <typename W, int C>
+__global__ void __launch_bounds__(kThreads, 1) train_fwd_kernel(const __grid_constant__ Args<W> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Cta<W, C> s(a, smem_raw, false);
+  s.zero_smem();
+  s.load_h(a.h0, a.H);
+  s.cl.sync();  // every CTA of the cluster runs before any reads a peer
+  const bool attn = !(a.skip & kSkipAttention), gates = !(a.skip & kSkipGates);
+  for (int t = 0; t < a.T; ++t) {
+    if (gates) s.h_product();
+    s.cl.sync();
+    s.gather_att2();
+    __syncthreads();
+    if (attn) s.attend(t, false);
+    s.cl.sync();
+    s.gather_x(t);
+    __syncthreads();
+    if (gates) s.step_fwd(t);
+    s.cl.sync();
+    if (t + 1 < a.T) {
+      s.gather_h();
+      __syncthreads();
+    }
+  }
+  s.cl.sync();  // no CTA leaves while a peer may read its shared memory
 }
+
+template <typename W, int C>
+__global__ void __launch_bounds__(kThreads, 1) train_bwd_recurrence_kernel(const __grid_constant__ Args<W> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Cta<W, C> s(a, smem_raw, true);
+  using Cv = Cvt<W>;
+  const int T = a.T, E = a.E, H = a.H;
+  const bool attn = !(a.skip & kSkipAttention), gates = !(a.skip & kSkipGates);
+  const bool rev = !(a.skip & kSkipReverse), back = !(a.skip & kSkipAttentionBack);
+  s.zero_smem();
+  s.cl.sync();
+  for (int t = T - 1; t >= 0; --t) {
+    const bool first = t == T - 1;
+    const float* hsrc = t > 0 ? a.hs_in + (size_t)(t - 1) * H : a.h0;
+    const size_t stride = t > 0 ? (size_t)T * H : (size_t)H;
+    s.load_h(hsrc, stride);
+    s.write_rows(t, hsrc, stride);
+    __syncthreads();
+    if (gates) s.h_product();
+    s.cl.sync();
+    s.gather_att2();
+    __syncthreads();
+    if (attn) s.attend(t, true);
+    s.cl.sync();
+    s.gather_x(t);
+    __syncthreads();
+    if (gates) s.step_bwd(t);
+    __syncthreads();
+    if (t > 0) {  // dword = the word part of dx; step 0's zero word has none
+      if (rev) s.rev_product(s.adg_i, a.wxr, s.In, 0, E);
+      s.cl.sync();
+      if (rev)
+        s.reduce_rows(E, [&](int r, int i, float4 v) {
+          *reinterpret_cast<float4*>(a.d_emb + ((size_t)(s.b0 + r) * T + t - 1) * E + i) = v;
+        });
+      s.cl.sync();
+    }
+    if (first)
+      for (int e = s.tid; e < s.nr * E; e += kThreads)
+        a.d_emb[((size_t)(s.b0 + e / E) * T + T - 1) * E + e % E] = 0.f;
+    if (rev) s.rev_product(s.adg_i, a.wxr, s.In, E, s.F);  // dctx = the context part of dx
+    s.cl.sync();
+    if (rev)
+      s.reduce_rows(s.F, [&](int r, int i, float4 v) {
+        *reinterpret_cast<float4*>(s.xpub + r * s.F + i) =
+            make_float4(Cv::rnd(v.x), Cv::rnd(v.y), Cv::rnd(v.z), Cv::rnd(v.w));
+      });
+    __syncthreads();
+    if (back) s.attend_back(t, first);
+    s.cl.sync();
+    s.gather_datt2();
+    __syncthreads();
+    if (rev) s.rev_product(s.adg_h, a.whr, H, 0, H);  // dh = [dgh | datt2] [w_hh | U_a^T]
+    s.cl.sync();
+    if (rev) s.reduce_cols();
+    __syncthreads();
+  }
+  for (int e = s.tid; e < s.M * s.ng * 8; e += kThreads) {
+    const int m = e / (s.ng * 8), ul = e - m * (s.ng * 8), row = s.row0 + m;
+    if (row < a.B) a.d_h0[(size_t)row * H + s.u0 * 8 + ul] = s.dh[m * s.NG * 8 + ul];
+  }
+  if (s.nr > 0)
+    for (int j = s.tid; j < H; j += kThreads) a.dva_part[(size_t)(s.b0 / kRowsA) * H + j] = s.dva[j];
+  s.cl.sync();
+}
+
+// d_feats[b, rho, f] = the fold over t = T-1 .. 0 of d <- rnd(d + rnd(rnd(w)
+// dctx)): V features of one (row, region) a thread, each product and sum
+// rounded on its own (no fused multiply-add), as the plain version takes
+// them.  bf16 takes them as bf16x2 operations: a product of two bf16 values
+// is exact in f32 and a sum of two rounds the same once as through f32, so
+// they give the roundings of the f32 arithmetic, one instruction for two.
+template <typename W>
+__global__ void __launch_bounds__(256) train_feats_fold_kernel(const float* __restrict__ w_t,
+                                                               const W* __restrict__ dctx_t,
+                                                               W* __restrict__ d_feats, int B,
+                                                               int T, int R, int F) {
+  constexpr int V = Vec<W>::N;
+  const int fv = F / V;
+  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long)B * R * fv) return;
+  const int ch = (int)(e % fv);
+  const long br = e / fv;
+  const int rho = (int)(br % R), b = (int)(br / R);
+  const float* wp = w_t + (size_t)b * T * R + rho;
+  const W* dp = dctx_t + (size_t)b * T * F + ch * V;
+  W* out = d_feats + ((size_t)b * R + rho) * F + ch * V;
+  if constexpr (std::is_same<W, __nv_bfloat16>::value) {
+    unsigned d[4] = {0u, 0u, 0u, 0u};  // bf16x2
+    for (int t = T - 1; t >= 0; --t) {
+      const unsigned w2 = Vec<__nv_bfloat16>::pair(__ldg(wp + (size_t)t * R),
+                                                    __ldg(wp + (size_t)t * R));
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(dp + (size_t)t * F));
+      const unsigned dc[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        unsigned p;  // .rn on each: no contraction into a fused multiply-add
+        asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(p) : "r"(w2), "r"(dc[i]));
+        asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d[i]) : "r"(d[i]), "r"(p));
+      }
+    }
+    *reinterpret_cast<uint4*>(out) = make_uint4(d[0], d[1], d[2], d[3]);
+  } else {
+    float d[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) d[i] = 0.f;
+    for (int t = T - 1; t >= 0; --t) {
+      const float wv = __ldg(wp + (size_t)t * R);
+      float v[V];
+      Vec<W>::ldg(dp + (size_t)t * F, v);
+#pragma unroll
+      for (int i = 0; i < V; ++i) d[i] = __fadd_rn(d[i], __fmul_rn(wv, v[i]));
+    }
+    Vec<W>::st(out, d);
+  }
+}
+
+// The launch configuration of a recurrence kernel: `clusters` clusters of C
+// CTAs, the layout's dynamic shared memory (the attribute set first).
+template <typename Kernel>
+cudaError_t configure(Kernel kernel, int C, int clusters, int smem, cudaStream_t stream,
+                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+constexpr int kMaxSmem = 232448;  // a block's shared memory on the H100 (227 KB)
+
+// How many clusters of the kernel can run at once (0: none fits), or a
+// negative CUDA error.
+template <typename Kernel>
+int max_clusters(Kernel kernel, int C, int smem) {
+  if (smem > kMaxSmem) return 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure(kernel, C, 1, smem, nullptr, cfg, attr);
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, (void*)kernel, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Launches the kernel over ceil(B / M) clusters; an error when the cluster
+// cannot be scheduled (no cluster fits on the card) or the launch fails.
+template <typename W, int C>
+int launch(bool bwd, const Args<W>& args, cudaStream_t stream) {
+  const int smem = layout(bwd, std::is_same<W, __nv_bfloat16>::value, C, args.R, args.F, args.E,
+                          args.H).total;
+  auto kernel = bwd ? train_bwd_recurrence_kernel<W, C> : train_fwd_kernel<W, C>;
+  if (max_clusters(kernel, C, smem) < 1) return (int)cudaErrorInvalidConfiguration;
+  const int M = kRowsA * C;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure(kernel, C, (args.B + M - 1) / M, smem, stream, cfg, attr);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <typename W>
+int launch_c(bool bwd, const Args<W>& args, int C, cudaStream_t stream) {
+  if (args.H % 8 || args.E % 8 || args.F % 8 || args.H > kMaxH || args.F > kMaxH ||
+      args.B < 1 || args.T < 1)
+    return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 2: return launch<W, 2>(bwd, args, stream);
+    case 4: return launch<W, 4>(bwd, args, stream);
+    case 8: return launch<W, 8>(bwd, args, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename W>
+int clusters_c(bool bwd, int C, int R, int F, int E, int H) {
+  const int smem = layout(bwd, std::is_same<W, __nv_bfloat16>::value, C, R, F, E, H).total;
+  switch (C) {
+    case 2: return max_clusters(bwd ? train_bwd_recurrence_kernel<W, 2> : train_fwd_kernel<W, 2>, 2, smem);
+    case 4: return max_clusters(bwd ? train_bwd_recurrence_kernel<W, 4> : train_fwd_kernel<W, 4>, 4, smem);
+    case 8: return max_clusters(bwd ? train_bwd_recurrence_kernel<W, 8> : train_fwd_kernel<W, 8>, 8, smem);
+    default: return -(int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename W>
+Args<W> fwd_args(const void* const* p, void* hs, int B, int T, int R, int F, int E, int H,
+                 int skip) {
+  Args<W> a{};
+  a.skip = skip;
+  a.feats = (const W*)p[0], a.att1 = (const W*)p[1], a.h0 = (const float*)p[2];
+  a.embeds = (const float*)p[3], a.ua_b = (const float*)p[4], a.va = (const float*)p[5];
+  a.bih = (const float*)p[6], a.bhh = (const float*)p[7], a.wx = p[8], a.wh = p[9];
+  a.hs = (float*)hs;
+  a.B = B, a.T = T, a.R = R, a.F = F, a.E = E, a.H = H;
+  return a;
+}
+
+template <typename W>
+Args<W> bwd_args(const void* const* p, void* const* o, int B, int T, int R, int F, int E, int H,
+                 int skip) {
+  Args<W> a = fwd_args<W>(p, nullptr, B, T, R, F, E, H, skip);
+  a.wxr = p[10], a.whr = p[11], a.hs_in = (const float*)p[12], a.g = (const float*)p[13];
+  a.d_att1 = (W*)o[0], a.d_h0 = (float*)o[1], a.d_emb = (float*)o[2], a.X = (float*)o[3];
+  a.DGI = (float*)o[4], a.HP = (float*)o[5], a.DGHN = (float*)o[6], a.DATT2 = (float*)o[7];
+  a.dva_part = (float*)o[8], a.w_t = (float*)o[9], a.dctx_t = (W*)o[10];
+  return a;
+}
+
+template <typename W>
+int fold(const void* w_t, const void* dctx_t, void* d_feats, int B, int T, int R, int F,
+         cudaStream_t stream) {
+  constexpr int V = Vec<W>::N;
+  if (F % V || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  const long n = (long)B * R * (F / V);
+  train_feats_fold_kernel<W><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      (const float*)w_t, (const W*)dctx_t, (W*)d_feats, B, T, R, F);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace rec
 
 // ------------------------------------------------------------ backward, pass 2
 // out[m][k] = sum_n A'[n][m] * Bm[n][k] over a chunk of rows n, where A' is A
@@ -615,62 +1420,6 @@ __global__ void train_wgrad_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-size_t fwd_smem(int RT, int R, int F, int E, int H) {
-  return sizeof(float) * (size_t)RT * (4 * H + 2 * (E + F) + R);
-}
-
-size_t bwd_smem(int RT, int R, int F, int E, int H) {
-  return sizeof(float) * ((size_t)RT * (6 * H + 4 * (E + F) + 6 * H + 3 * R) + H);
-}
-
-template <typename W, int RT>
-int launch_fwd(const void* const* p, void* hs, int B, int T, int R, int F, int E, int H,
-               cudaStream_t stream) {
-  const size_t smem = fwd_smem(RT, R, F, E, H);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(train_fwd_kernel<W, RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  train_fwd_kernel<W, RT><<<(B + RT - 1) / RT, 256, smem, stream>>>(
-      (const W*)p[0], (const W*)p[1], (const float*)p[2], (const float*)p[3], (const W*)p[4],
-      (const float*)p[5], (const float*)p[6], (const W*)p[7], (const W*)p[8],
-      (const float*)p[9], (const float*)p[10], (float*)hs, B, T, R, F, E, H);
-  return (int)cudaGetLastError();
-}
-
-template <typename W, int RT>
-int launch_bwd(const void* const* p, void* const* o, int B, int T, int R, int F, int E, int H,
-               cudaStream_t stream) {
-  const size_t smem = bwd_smem(RT, R, F, E, H);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(train_bwd_recurrence_kernel<W, RT>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  train_bwd_recurrence_kernel<W, RT><<<(B + RT - 1) / RT, 256, smem, stream>>>(
-      (const W*)p[0], (const W*)p[1], (const float*)p[2], (const float*)p[3], (const W*)p[4],
-      (const float*)p[5], (const float*)p[6], (const W*)p[7], (const W*)p[8],
-      (const float*)p[9], (const float*)p[10], (const float*)p[11], (const float*)p[12],
-      (W*)o[0], (W*)o[1], (float*)o[2], (float*)o[3], (float*)o[4], (float*)o[5],
-      (float*)o[6], (float*)o[7], (float*)o[8], (float*)o[9], B, T, R, F, E, H);
-  return (int)cudaGetLastError();
-}
-
-// The one row tile instantiated (train_kernel.BLOCK_ROWS): B=1024 gives 256
-// blocks on the 132 SMs.
-constexpr int kTrainRows = 4;
-
-template <typename W>
-int fwd_entry(const void* const* p, void* hs, int B, int T, int R, int F, int E, int H,
-              int block_rows, void* stream) {
-  if (block_rows != kTrainRows) return (int)cudaErrorInvalidValue;
-  return launch_fwd<W, kTrainRows>(p, hs, B, T, R, F, E, H, (cudaStream_t)stream);
-}
-
-template <typename W>
-int bwd_entry(const void* const* p, void* const* o, int B, int T, int R, int F, int E, int H,
-              int block_rows, void* stream) {
-  if (block_rows != kTrainRows) return (int)cudaErrorInvalidValue;
-  return launch_bwd<W, kTrainRows>(p, o, B, T, R, F, E, H, (cudaStream_t)stream);
-}
-
 Product product(const float* A, int lda, int m_data, const float* B, int ldb, int b_split,
                 const float* B2, int ldb2, int k_cols, int out_off, int ldc) {
   const int tiles_m = (m_data + 1 + kTile - 1) / kTile, tiles_k = (k_cols + kTile - 1) / kTile;
@@ -682,49 +1431,72 @@ Product product(const float* A, int lda, int m_data, const float* B, int ldb, in
 
 extern "C" {
 
-// hs[B, T, H] = the recurrence of (feats, att1, h0, embeds, ua_w, ua_b, va,
-// wih^T, whh^T, bih, bhh); embeds unshifted [B, T, E], f32.
-#define FWD_PARAMS                                                                        \
-  const void *feats, const void *att1, const void *h0, const void *embeds,               \
-      const void *ua_w, const void *ua_b, const void *va, const void *wih,               \
-      const void *whh, const void *bih, const void *bhh, void *hs, int B, int T, int R,  \
-      int F, int E, int H, int block_rows, void *stream
-#define FWD_ARGS                                                                          \
-  const void* p[] = {feats, att1, h0, embeds, ua_w, ua_b, va, wih, whh, bih, bhh};        \
-  return fwd_entry
+// hs[B, T, H] = the recurrence of (feats, att1, h0, embeds (unshifted, f32),
+// U_a b, v_a, b_ih, b_hh) with the packed weights wx, wh
+// (train_kernel.pack_recurrence), on clusters of C CTAs; `skip` (timing
+// only) leaves parts out (rec::kSkip*).
+#define FWD_PARAMS                                                                         \
+  const void *feats, const void *att1, const void *h0, const void *embeds,                \
+      const void *ua_b, const void *va, const void *bih, const void *bhh, const void *wx, \
+      const void *wh, void *hs, int B, int T, int R, int F, int E, int H, int C, int skip,   \
+      void *stream
+#define FWD_ARGS(W)                                                                        \
+  const void* p[] = {feats, att1, h0, embeds, ua_b, va, bih, bhh, wx, wh};                \
+  return rec::launch_c<W>(false, rec::fwd_args<W>(p, hs, B, T, R, F, E, H, skip), C,      \
+                          (cudaStream_t)stream);
 
-int train_fwd_f32(FWD_PARAMS) {
-  FWD_ARGS<float>(p, hs, B, T, R, F, E, H, block_rows, stream);
-}
+int train_fwd_f32(FWD_PARAMS) { FWD_ARGS(float) }
 
-int train_fwd_bf16(FWD_PARAMS) {
-  FWD_ARGS<__nv_bfloat16>(p, hs, B, T, R, F, E, H, block_rows, stream);
-}
+int train_fwd_bf16(FWD_PARAMS) { FWD_ARGS(__nv_bfloat16) }
 
-#define BWD_PARAMS                                                                        \
-  const void *feats, const void *att1, const void *h0, const void *embeds,               \
-      const void *ua_w, const void *ua_b, const void *va, const void *wih,               \
-      const void *whh, const void *bih, const void *bhh, const void *hs, const void *g,  \
-      void *d_feats, void *d_att1, void *d_h0, void *d_emb, void *X, void *DGI, void *HP, \
-      void *DGHN, void *DATT2, void *dva_part, int B, int T, int R, int F, int E, int H,  \
-      int block_rows, void *stream
-#define BWD_ARGS                                                                          \
-  const void* p[] = {feats, att1, h0, embeds, ua_w, ua_b, va, wih, whh, bih, bhh, hs, g}; \
-  void* o[] = {d_feats, d_att1, d_h0, d_emb, X, DGI, HP, DGHN, DATT2, dva_part};          \
-  return bwd_entry
+// Pass 1 of the BPTT for the cotangent g of hs: the per-row gradients, the
+// fold's operands w_t [B, T, R] (f32) and dctx_t [B, T, F] (W), the pass-2
+// rows and one d(v_a) partial per 8 rows.
+#define BWD_PARAMS                                                                          \
+  const void *feats, const void *att1, const void *h0, const void *embeds,                 \
+      const void *ua_b, const void *va, const void *bih, const void *bhh, const void *wx,  \
+      const void *wh, const void *wxr, const void *whr, const void *hs, const void *g,     \
+      void *d_att1, void *d_h0, void *d_emb, void *X, void *DGI, void *HP, void *DGHN,      \
+      void *DATT2, void *dva_part, void *w_t, void *dctx_t, int B, int T, int R, int F,     \
+      int E, int H, int C, int skip, void *stream
+#define BWD_ARGS(W)                                                                         \
+  const void* p[] = {feats, att1, h0, embeds, ua_b, va, bih, bhh, wx, wh, wxr, whr, hs, g}; \
+  void* o[] = {d_att1, d_h0, d_emb, X, DGI, HP, DGHN, DATT2, dva_part, w_t, dctx_t};       \
+  return rec::launch_c<W>(true, rec::bwd_args<W>(p, o, B, T, R, F, E, H, skip), C,         \
+                          (cudaStream_t)stream);
 
-int train_bwd_recurrence_f32(BWD_PARAMS) {
-  BWD_ARGS<float>(p, o, B, T, R, F, E, H, block_rows, stream);
-}
+int train_bwd_recurrence_f32(BWD_PARAMS) { BWD_ARGS(float) }
 
-int train_bwd_recurrence_bf16(BWD_PARAMS) {
-  BWD_ARGS<__nv_bfloat16>(p, o, B, T, R, F, E, H, block_rows, stream);
-}
+int train_bwd_recurrence_bf16(BWD_PARAMS) { BWD_ARGS(__nv_bfloat16) }
 
 #undef FWD_PARAMS
 #undef FWD_ARGS
 #undef BWD_PARAMS
 #undef BWD_ARGS
+
+// d_feats [B, R, F] (W) from the fold's operands
+int train_feats_fold_f32(const void* w_t, const void* dctx_t, void* d_feats, int B, int T, int R,
+                         int F, void* stream) {
+  return rec::fold<float>(w_t, dctx_t, d_feats, B, T, R, F, (cudaStream_t)stream);
+}
+
+int train_feats_fold_bf16(const void* w_t, const void* dctx_t, void* d_feats, int B, int T,
+                          int R, int F, void* stream) {
+  return rec::fold<__nv_bfloat16>(w_t, dctx_t, d_feats, B, T, R, F, (cudaStream_t)stream);
+}
+
+// How many clusters of C CTAs of the forward (bwd = 0) or pass 1 (bwd = 1)
+// can run at once on the current device (0: none fits), or a negative CUDA
+// error; and the dynamic shared memory of one of their CTAs (bytes).
+int train_recurrence_clusters(int bwd, int bf16, int C, int R, int F, int E, int H) {
+  return bf16 ? rec::clusters_c<__nv_bfloat16>(bwd != 0, C, R, F, E, H)
+              : rec::clusters_c<float>(bwd != 0, C, R, F, E, H);
+}
+
+int train_recurrence_smem(int bwd, int bf16, int C, int R, int F, int E, int H) {
+  return rec::layout(bwd != 0, bf16 != 0, C, R, F, E, H).total;
+}
+
 
 // The weight-gradient products over the N = T*B rows of pass 1, into
 // `splits` partials of the layout of train_kernel.wgrad_layout: [In+1, 3H]

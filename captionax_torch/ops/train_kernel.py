@@ -8,19 +8,31 @@ T-step attention-GRU recurrence is one ``torch.autograd.Function`` whose
 forward and backward are hand-written CUDA kernels
 (``csrc/train_recurrence.cu``):
 
-- :func:`fused_fwd`  one launch, ``train_fwd``: one block per tile of
-  ``BLOCK_ROWS`` rows loops over all T steps with h in shared memory
-  (replaces ``_fwd_kernel``) -> hs [B, T, H] in f32;
-- :func:`fused_bwd`  three launches (replace ``_bwd_kernel``):
-  :func:`bwd_recurrence` (``train_bwd_recurrence``) runs the exact BPTT
-  in reverse time per row tile, recomputing each step from the saved hs,
-  and writes the per-row gradients (feats, att1, h0, embeds) plus, for
-  every (step, row), the operands of the weight gradients;
-  :func:`wgrad_partial` (``train_wgrad_partial``) sums those over all T*B
+- :func:`fused_fwd`  one launch, ``train_fwd``: a thread-block cluster of C
+  CTAs per tile of M = 8 C rows loops over all T steps (replaces
+  ``_fwd_kernel``) -> hs [B, T, H] in f32;
+- :func:`fused_bwd`  four launches (replace ``_bwd_kernel``):
+  :func:`bwd_recurrence` runs ``train_bwd_recurrence`` (the exact BPTT in
+  reverse time on the same clusters, each step recomputed from the saved hs;
+  the per-row gradients, the attention weights and rounded dctx of every
+  step, and for every (step, row) the operands of the weight gradients) and
+  ``train_feats_fold`` (:func:`feats_fold`: d_feats, the per-step sum folded
+  once per element in the JAX kernel's order); :func:`wgrad_partial`
+  (``train_wgrad_partial``) sums the weight-gradient operands over all T*B
   rows in ``WGRAD_SPLITS`` chunks (X^T dGI, Hprev^T dGH, Hprev^T dATT2 and
   the column sums for the biases); :func:`wgrad_reduce`
-  (``train_wgrad_reduce``) adds the chunks, and the per-block partials of
+  (``train_wgrad_reduce``) adds the chunks, and the per-8-row partials of
   d(v_a), in a fixed order.
+
+The recurrence kernels (design in ``csrc/train_recurrence.cu``): the C CTAs
+of a cluster split the H / 8 groups of 8 hidden units (each group's r, z, n
+columns and its U_a columns side by side: :func:`pack_recurrence`) and the
+rows of the attention, 8 a CTA, and exchange att2, the contexts, h and the
+partial sums of dx and dh through distributed shared memory.
+:func:`cluster_shape` picks C from what the card reports it can run at once
+(:func:`max_clusters`).  bf16 products run on the tensor cores (mma.sync,
+one bf16 term per operand: the JAX kernel rounds every product operand to
+the compute dtype), f32 products on the CUDA cores.
 
 The weight-gradient pass is 20.6 GFLOP of f32 products at B=1024, T=25,
 bound by the f32 FMA rate (0.31 ms at 67 TFLOP/s).  Its kernel is an f32
@@ -40,39 +52,131 @@ so the cross-block sum is a second pass over rows written to device
 memory; its order is fixed, so the gradients are deterministic.
 
 The compute dtype is the dtype of ``raw_features``.  The kernels compute in
-f32 on the CUDA cores and round to the compute dtype where the JAX kernel
-keeps a value in it (att2 and the attention temporaries, the context, the
-operands of the products, the d_feats / d_att1 accumulators), so the bf16
-kernels follow the same rounding points as the plain versions.  hs is f32.
+f32 and round to the compute dtype where the JAX kernel keeps a value in it
+(att2 and the attention temporaries, the context, the operands of the
+products, the d_feats / d_att1 accumulators), so the bf16 kernels follow
+the same rounding points as the plain versions.  hs is f32.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
-plain version (``*_plain``) for CPU tensors only.  The plain backward is the reverse loop of ``_bwd_kernel`` written
-out, not autograd.  Like captionax's kernel, these ignore
-``params["layers"]`` (extra GRU layers): hold them against the scan only at
-one layer.
+plain version (``*_plain``) for CPU tensors only.  The plain backward is the
+reverse loop of ``_bwd_kernel`` written out, not autograd.  Like
+captionax's kernel, these ignore ``params["layers"]`` (extra GRU layers):
+hold them against the scan only at one layer.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from captionax_torch.models import decoder as dec
 from captionax_torch.models.layers import embedding, linear
+from captionax_torch.ops import _cuda
 from captionax_torch.ops._cuda import KernelOp
-from captionax_torch.ops.decode_kernel import _SUFFIX, _check, _launch_device, _ptr
+from captionax_torch.ops.decode_kernel import (
+    _SUFFIX,
+    GATE_UNITS,
+    _check,
+    _fragments,
+    _launch_device,
+    _ptr,
+)
 
-# rows per block of the recurrence kernels (the one tile csrc instantiates):
-# B=1024 gives 256 blocks on the 132 SMs
-BLOCK_ROWS = 4
+# (CTAs a cluster, rows a cluster) of the recurrence kernels, tried in this
+# order by cluster_shape: a CTA takes 8 rows of the attention, so M = 8 C
+CLUSTER_SHAPES = ((4, 32), (8, 64), (2, 16))
+ROWS_PER_CTA = 8
 WGRAD_SPLITS = 32       # row chunks of the weight-gradient pass: 1,088 blocks, 4.1 waves
 
 FWD = KernelOp("train_fwd")
 BWD = KernelOp("train_bwd_recurrence")
+FOLD = KernelOp("train_feats_fold")
 WGRAD = KernelOp("train_wgrad_partial")
 WGRAD_REDUCE = KernelOp("train_wgrad_reduce")
-KERNELS = (FWD, BWD, WGRAD, WGRAD_REDUCE)
+KERNELS = (FWD, BWD, FOLD, WGRAD, WGRAD_REDUCE)
+
+
+def cluster_waves(clusters: int, active: int) -> float:
+    """The share of ``ceil(clusters / active)`` waves of ``active`` clusters
+    that ``clusters`` clusters fill (0 when none can run)."""
+    if active < 1:
+        return 0.0
+    waves = -(-clusters // active)
+    return clusters / (waves * active)
+
+
+def cluster_shape(B: int, active: Dict[int, int]) -> Tuple[int, int]:
+    """(C, M) of the recurrence kernels for B rows: the first of
+    CLUSTER_SHAPES whose grid of ceil(B / M) clusters fills at least 95% of
+    its waves of the ``active[C]`` clusters that the card runs at once
+    (``cudaOccupancyMaxActiveClusters``, :func:`max_clusters`; 0 where the
+    CTA's shared memory does not fit); otherwise (small B: every grid is one
+    wave) the shape with the most CTAs at once, the smaller cluster on a
+    tie.  Raises when no shape can run.  A cluster runs its rows' T steps in
+    order, so a second wave costs a whole pass again: the H100 runs 30
+    clusters of 4 and 15 of 8 at once, so B=1024 takes (2, 16), 64 of 66."""
+    runnable = [(c, m) for c, m in CLUSTER_SHAPES if active.get(c, 0) > 0]
+    if not runnable:
+        raise RuntimeError(f"no cluster shape of the recurrence kernels can run: {active}")
+    for c, m in runnable:
+        if cluster_waves(-(-B // m), active[c]) >= 0.95:
+            return c, m
+    return max(runnable, key=lambda s: (min(-(-B // s[1]) * s[0], active[s[0]] * s[0]), -s[0]))
+
+
+def cta_groups(c: int, C: int, U: int) -> Tuple[int, int]:
+    """The unit groups [u0, u1) that CTA c of a cluster of C holds."""
+    return c * U // C, (c + 1) * U // C
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(dev: torch.device, bwd: bool, bf16: bool, C: int, R: int, F: int, E: int,
+                 H: int) -> int:
+    """How many clusters of C CTAs of the forward (or pass 1) the card runs
+    at once at these sizes (0 when a CTA's shared memory does not fit)."""
+    with torch.cuda.device(dev):
+        n = _cuda.library().train_recurrence_clusters(int(bwd), int(bf16), C, R, F, E, H)
+    if n < 0:
+        raise RuntimeError(f"train_recurrence_clusters: CUDA error {-n}")
+    return n
+
+
+def _shape(dev, bwd: bool, cdt, B: int, dims, shape: Optional[int]) -> int:
+    """C of a launch: ``shape`` when given, else :func:`cluster_shape`'s."""
+    if shape is not None:
+        return shape
+    active = {c: max_clusters(dev, bwd, cdt == torch.bfloat16, c, *dims) for c, _ in CLUSTER_SHAPES}
+    return cluster_shape(B, active)[0]
+
+
+def pack_recurrence(ua_w: torch.Tensor, wih_t: torch.Tensor, whh_t: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+    """The weights of the recurrence kernels, each group of GATE_UNITS hidden
+    units' columns side by side (group u: columns 8u .. 8u+7 of each gate):
+    ``wx`` [In, U * 24] = w_ih^T's r, z, n columns; ``wh`` [H, U * 32] =
+    w_hh^T's r, z, n and U_a's columns; ``wxr`` [U * 32, In] = [w_ih^T's r,
+    z, n | 0]^T and ``whr`` = wh^T, the products of the other direction.  A
+    CTA holding groups [u0, u1) reads columns u0 * 24 .. or 32 .. of wx and
+    wh and rows 32 u0 .. of wxr and whr.  bf16 weights come as mma.sync B
+    fragments of those matrices (:func:`decode_kernel._fragments`: [k16
+    tiles, n8 tiles, 32, 4]); f32 as they are.  H must be a multiple of 8."""
+    In, G = wih_t.shape
+    H = whh_t.shape[0]
+    U = H // GATE_UNITS
+    gx = wih_t.reshape(In, 3, U, GATE_UNITS)
+    gh = torch.cat([whh_t.reshape(H, 3, U, GATE_UNITS), ua_w.reshape(H, 1, U, GATE_UNITS)],
+                   dim=1)
+    wx = gx.permute(0, 2, 1, 3).reshape(In, U * 24)
+    wh = gh.permute(0, 2, 1, 3).reshape(H, U * 32)
+    wxr = torch.cat([gx, torch.zeros_like(gx[:, :1])], dim=1).permute(0, 2, 1, 3).reshape(
+        In, U * 32).t()
+    whr = wh.t()
+    mats = {"wx": wx, "wh": wh, "wxr": wxr, "whr": whr}
+    if wih_t.dtype == torch.bfloat16:
+        return {k: _fragments(m).contiguous() for k, m in mats.items()}
+    return {k: m.contiguous() for k, m in mats.items()}
 
 
 def _dot32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -126,7 +230,7 @@ def fused_fwd_plain(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, 
 
 
 def bwd_recurrence_plain(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh,
-                         hs, g):
+                         hs, g, fold_operands: bool = False):
     """Pass 1 of the BPTT of :func:`fused_fwd_plain` for the cotangent g
     [B, T, H] of hs: the reverse loop of ``_bwd_kernel``, each step
     recomputed from h_{t-1}.  -> (d_feats, d_att1, d_h0, d_emb, rows, dva_part):
@@ -135,18 +239,25 @@ def bwd_recurrence_plain(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, 
     the weight gradients for row n = t*B + b, in f32: ``x`` [N, E+F] (the
     word and the context), ``dgi`` [N, 3H], ``hp`` [N, H] (h_{t-1}),
     ``dghn`` [N, H] (the n-gate part of dgh) and ``datt2`` [N, H]; d(v_a) as
-    one partial [1, H] (the kernel gives one per block of rows)."""
+    one partial per ROWS_PER_CTA rows [ceil(B / 8), H], as the kernel gives
+    them (a CTA's rows of the attention).  With ``fold_operands`` a seventh
+    item: (w_t [B, T, R] f32, dctx_t [B, T, F] in the compute dtype), the
+    attention weights and rounded dctx of every step, whose
+    :func:`feats_fold_plain` is d_feats."""
     cdt = feats.dtype
     B, R, F = feats.shape
     T, E = embeds.shape[1], embeds.shape[2]
     H = h0.shape[1]
     dev = feats.device
     va_c = va.to(cdt)
-    d_va = torch.zeros((H,), dtype=torch.float32, device=dev)
+    nb = -(-B // ROWS_PER_CTA)
+    d_va = torch.zeros((nb * ROWS_PER_CTA, H), dtype=torch.float32, device=dev)
     d_feats = torch.zeros((B, R, F), dtype=cdt, device=dev)
     d_att1 = torch.zeros((B, R, H), dtype=cdt, device=dev)
     d_emb = torch.zeros((B, T, E), dtype=torch.float32, device=dev)
     dh = torch.zeros((B, H), dtype=torch.float32, device=dev)
+    w_t = torch.zeros((B, T, R), dtype=torch.float32, device=dev)
+    dctx_t = torch.zeros((B, T, F), dtype=cdt, device=dev)
     rows = {k: [None] * T for k in ("x", "dgi", "hp", "dghn", "datt2")}
     for t in reversed(range(T)):
         h_prev = h0.float() if t == 0 else hs[:, t - 1].float()
@@ -168,6 +279,7 @@ def bwd_recurrence_plain(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, 
         if t > 0:  # the zero word of step 0 has no embedding to receive it
             d_emb[:, t - 1] = dx[:, :E]
         dctx3 = dx[:, None, E:].to(cdt)
+        w_t[:, t], dctx_t[:, t] = w, dctx3[:, 0]
         dw = torch.sum(dctx3 * feats, dim=2).float()
         d_feats = d_feats + w.to(cdt)[:, :, None] * dctx3
         ds = w * (dw - torch.sum(w * dw, dim=1, keepdim=True))
@@ -175,13 +287,28 @@ def bwd_recurrence_plain(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, 
         de_lin = da * (1.0 - a * a)
         d_att1 = d_att1 + de_lin
         datt2 = torch.sum(de_lin, dim=1).float()
-        d_va += torch.sum(a.float() * ds[:, :, None], dim=(0, 1))
+        d_va[:B] += torch.sum(a.float() * ds[:, :, None], dim=1)
         dh = dh_prev + _dot32(datt2.to(cdt), ua_w.t())
         for k, v in (("x", x), ("dgi", dgi), ("hp", h_prev), ("dghn", dghn),
                      ("datt2", datt2)):
             rows[k][t] = v
     rows = {k: torch.cat(v, dim=0) for k, v in rows.items()}
-    return d_feats, d_att1, dh, d_emb, rows, d_va[None]
+    dva_part = d_va.view(nb, ROWS_PER_CTA, H).sum(dim=1)
+    out = (d_feats, d_att1, dh, d_emb, rows, dva_part)
+    return out + ((w_t, dctx_t),) if fold_operands else out
+
+
+def feats_fold_plain(w_t: torch.Tensor, dctx_t: torch.Tensor) -> torch.Tensor:
+    """d_feats [B, R, F] in dctx_t's dtype from the attention weights w_t
+    [B, T, R] (f32) and the rounded dctx_t [B, T, F] of every step: the
+    fold over t = T-1 .. 0 of d <- d + rnd(w_t) dctx_t in that dtype, the
+    order and roundings of pass 1's per-step sum."""
+    cdt = dctx_t.dtype
+    B, T, R = w_t.shape
+    d = torch.zeros((B, R, dctx_t.shape[2]), dtype=cdt, device=dctx_t.device)
+    for t in reversed(range(T)):
+        d = d + w_t[:, t].to(cdt)[:, :, None] * dctx_t[:, t][:, None, :]
+    return d
 
 
 def wgrad_plain(rows: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -210,7 +337,7 @@ def wgrad_partial_plain(rows: Dict[str, torch.Tensor]):
 
 
 def wgrad_reduce_plain(partial: torch.Tensor, dva_part: torch.Tensor):
-    """Pass 2b: the chunks' sum and the blocks' d(v_a), each added in order."""
+    """Pass 2b: the chunks' sum and the 8-row blocks' d(v_a), each added in order."""
     out, d_va = partial[0].clone(), dva_part[0].clone()
     for x in partial[1:]:
         out += x
@@ -301,51 +428,118 @@ def _check_operands(ops):
     return dev, cdt, (B, T, R, F, E, H)
 
 
-def fused_fwd(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh) -> torch.Tensor:
+# the widest F and H of the recurrence kernels (a lane holds at most two
+# 16-byte chunks of an att1 or feats row)
+MAX_WIDTH = 256
+# `skip` bits of the recurrence kernels, for timing their parts (the output
+# is then not the function): the attention (scores, softmax, context), the
+# h and x products with the GRU (and its backward), the dx and dh products
+# with their sums across the cluster, the attention backward; and of the
+# attention, the scores alone and the context alone
+SKIP_ATTENTION, SKIP_GATES, SKIP_REVERSE, SKIP_ATTENTION_BACK = 1, 2, 4, 8
+SKIP_SCORES, SKIP_CONTEXT = 16, 32
+
+
+def _check_widths(F: int, E: int, H: int) -> None:
+    if F % 8 or E % 8 or H % 8 or F > MAX_WIDTH or H > MAX_WIDTH:
+        raise ValueError(f"the recurrence kernels take F, E and H in multiples of 8 (16-byte "
+                         f"rows, groups of 8 units), F and H up to {MAX_WIDTH}: F={F}, E={E}, "
+                         f"H={H}")
+
+
+def fused_fwd(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh,
+              shape: Optional[int] = None, skip: int = 0) -> torch.Tensor:
     """K3's forward: ``train_fwd`` on the card, the plain version for CPU
-    tensors.  -> hs [B, T, H] f32."""
+    tensors.  -> hs [B, T, H] f32.  ``shape`` forces the CTAs a cluster
+    (2, 4 or 8; default :func:`cluster_shape`'s); ``skip`` (SKIP_* bits)
+    leaves parts out, to time them."""
     args = (feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh)
     if feats.device.type == "cpu":
         return fused_fwd_plain(*args)
     ops = _operands(*args)
     dev, cdt, (B, T, R, F, E, H) = _check_operands(ops)
+    _check_widths(F, E, H)
+    C = _shape(dev, False, cdt, B, (R, F, E, H), shape)
+    pk = pack_recurrence(ops[4], ops[7], ops[8])
     hs = torch.empty((B, T, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        FWD.launch(f"train_fwd_{_SUFFIX[cdt]}", *(_ptr(x) for x in ops), _ptr(hs),
-                   B, T, R, F, E, H, BLOCK_ROWS, torch.cuda.current_stream(dev).cuda_stream)
+        FWD.launch(f"train_fwd_{_SUFFIX[cdt]}",
+                   *(_ptr(ops[i]) for i in (0, 1, 2, 3, 5, 6, 9, 10)),
+                   _ptr(pk["wx"]), _ptr(pk["wh"]), _ptr(hs), B, T, R, F, E, H, C, skip,
+                   torch.cuda.current_stream(dev).cuda_stream)
     return hs
 
 
-def bwd_recurrence(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh, hs, g):
-    """K3's backward, pass 1: ``train_bwd_recurrence`` on the card, the plain
-    version for CPU tensors.  -> (d_feats, d_att1, d_h0, d_emb, rows,
-    dva_part) as :func:`bwd_recurrence_plain` gives them, with one d(v_a)
-    partial per block of ``BLOCK_ROWS`` rows."""
+def bwd_recurrence_parts(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh, hs,
+                         g, shape: Optional[int] = None, skip: int = 0):
+    """``train_bwd_recurrence`` alone (CUDA tensors only): -> ((w_t, dctx_t),
+    d_att1, d_h0, d_emb, rows, dva_part), the fold's operands in place of
+    d_feats (:func:`feats_fold`).  ``shape`` and ``skip`` as for
+    :func:`fused_fwd`."""
     args = (feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh)
-    if feats.device.type == "cpu":
-        return bwd_recurrence_plain(*args, hs, g)
     ops = _operands(*args)
     dev, cdt, (B, T, R, F, E, H) = _check_operands(ops)
+    _check_widths(F, E, H)
     hs, g = hs.contiguous(), g.float().contiguous()
     _check(hs, "hs", dev, torch.float32, (B, T, H))
     _check(g, "g", dev, torch.float32, (B, T, H))
+    C = _shape(dev, True, cdt, B, (R, F, E, H), shape)
+    pk = pack_recurrence(ops[4], ops[7], ops[8])
     In, N = E + F, T * B
     f32 = dict(dtype=torch.float32, device=dev)
-    d_feats = torch.empty((B, R, F), dtype=cdt, device=dev)
     d_att1 = torch.empty((B, R, H), dtype=cdt, device=dev)
     d_h0 = torch.empty((B, H), **f32)
     d_emb = torch.empty((B, T, E), **f32)
     rows = {"x": torch.empty((N, In), **f32), "dgi": torch.empty((N, 3 * H), **f32),
             "hp": torch.empty((N, H), **f32), "dghn": torch.empty((N, H), **f32),
             "datt2": torch.empty((N, H), **f32)}
-    dva_part = torch.empty((-(-B // BLOCK_ROWS), H), **f32)
+    dva_part = torch.empty((-(-B // ROWS_PER_CTA), H), **f32)
+    w_t = torch.empty((B, T, R), **f32)
+    dctx_t = torch.empty((B, T, F), dtype=cdt, device=dev)
     with torch.cuda.device(dev):
-        BWD.launch(f"train_bwd_recurrence_{_SUFFIX[cdt]}", *(_ptr(x) for x in ops),
-                   _ptr(hs), _ptr(g), _ptr(d_feats), _ptr(d_att1), _ptr(d_h0), _ptr(d_emb),
+        BWD.launch(f"train_bwd_recurrence_{_SUFFIX[cdt]}",
+                   *(_ptr(ops[i]) for i in (0, 1, 2, 3, 5, 6, 9, 10)),
+                   *(_ptr(pk[k]) for k in ("wx", "wh", "wxr", "whr")), _ptr(hs), _ptr(g),
+                   _ptr(d_att1), _ptr(d_h0), _ptr(d_emb),
                    *(_ptr(rows[k]) for k in ("x", "dgi", "hp", "dghn", "datt2")),
-                   _ptr(dva_part), B, T, R, F, E, H, BLOCK_ROWS,
+                   _ptr(dva_part), _ptr(w_t), _ptr(dctx_t), B, T, R, F, E, H, C, skip,
                    torch.cuda.current_stream(dev).cuda_stream)
-    return d_feats, d_att1, d_h0, d_emb, rows, dva_part
+    return (w_t, dctx_t), d_att1, d_h0, d_emb, rows, dva_part
+
+
+def feats_fold(w_t: torch.Tensor, dctx_t: torch.Tensor) -> torch.Tensor:
+    """d_feats from pass 1's fold operands: ``train_feats_fold`` on the
+    card, :func:`feats_fold_plain` for CPU tensors."""
+    if w_t.device.type == "cpu":
+        return feats_fold_plain(w_t, dctx_t)
+    dev = _launch_device(w_t)
+    cdt = dctx_t.dtype
+    if cdt not in _SUFFIX:
+        raise ValueError(f"compute dtype {cdt} has no kernel")
+    B, T, R = w_t.shape
+    F = dctx_t.shape[2]
+    _check(w_t, "w_t", dev, torch.float32, (B, T, R))
+    _check(dctx_t, "dctx_t", dev, cdt, (B, T, F))
+    if F % 8:
+        raise ValueError(f"train_feats_fold takes F in multiples of 8: F={F}")
+    d_feats = torch.empty((B, R, F), dtype=cdt, device=dev)
+    with torch.cuda.device(dev):
+        FOLD.launch(f"train_feats_fold_{_SUFFIX[cdt]}", _ptr(w_t), _ptr(dctx_t), _ptr(d_feats),
+                    B, T, R, F, torch.cuda.current_stream(dev).cuda_stream)
+    return d_feats
+
+
+def bwd_recurrence(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh, hs, g,
+                   shape: Optional[int] = None):
+    """K3's backward, pass 1: ``train_bwd_recurrence`` and
+    ``train_feats_fold`` on the card, the plain version for CPU tensors.
+    -> (d_feats, d_att1, d_h0, d_emb, rows, dva_part) as
+    :func:`bwd_recurrence_plain` gives them."""
+    args = (feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh)
+    if feats.device.type == "cpu":
+        return bwd_recurrence_plain(*args, hs, g)
+    fold_ops, *rest = bwd_recurrence_parts(*args, hs, g, shape=shape)
+    return (feats_fold(*fold_ops), *rest)
 
 
 def wgrad_partial(rows: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -396,7 +590,7 @@ def wgrad_reduce(partial: torch.Tensor, dva_part: torch.Tensor):
 
 def fused_bwd(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh, hs, g):
     """K3's backward: :func:`bwd_recurrence`, :func:`wgrad_partial`,
-    :func:`wgrad_reduce` (three launches on the card, the plain versions
+    :func:`wgrad_reduce` (four launches on the card, the plain versions
     for CPU tensors).  -> the gradients of the eleven inputs of
     :func:`fused_fwd`, each in its input's dtype."""
     args = (feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, bih, bhh)

@@ -17,11 +17,13 @@ share (bf16: its gate products on the tensor cores, [x | h] split into
 three bf16 terms) against its plain version at the edges of its tiling,
 for beam and greedy rows, one theta and an S=3 bank, shows that the early
 exit fires, runs hypernet train steps through K3 and through the per-step
-loop, holds K4 against its plain version at small shapes and at the full
+loop (K3's recurrence kernels on thread-block clusters, held to their plain
+versions at shapes that cut the cluster tiling, at every cluster size that
+fits), holds K4 against its plain version at small shapes and at the full
 width of ResNet-152, serves uint8 images through the port's
 ``CaptionService`` (ResNet-152 on K4, then K1 or K2), and times each
-kernel (the cell step's two phases apart), each train step and the image
-path.  One line per phase gives the phase's seconds.  The line before the last is a
+kernel (the cell step's two phases apart, K3's recurrence kernels by
+part), each train step and the image path.  One line per phase gives the phase's seconds.  The line before the last is a
 JSON ``kernels`` record; the last line is ``{"ok": true, "device":
 {...}}``.  Any mismatch, a missing card or a failed build raises, and the
 script exits non-zero without that last line.
@@ -196,9 +198,19 @@ def card_and_build():
                 say(f"  {entry}: {regs} registers, {stores} B spill stores, {loads} B spill loads")
                 require(regs is not None and stores == 0 and loads == 0,
                         f"{entry}: ptxas reports spills")
+        for entry, (regs, stores, loads) in ptxas_report(info.log, "rec").items():
+            if any(k in entry for k in K3_KERNELS):
+                say(f"  K3 {entry}: {regs} registers, {stores} B spill stores, {loads} B spill "
+                    "loads")
     else:
         say("  the library was already built: no ptxas report to check")
     lib = _cuda.library()
+    for (bwd, name), per_c in k3_shapes(R, FO, E, H).items():
+        say(f"  K3 {'train_bwd_recurrence' if bwd else 'train_fwd'} {name} at full width: "
+            "dynamic shared memory and clusters the card runs at once, by CTAs a cluster: "
+            + ", ".join(f"C={c}: {sm} B, {n}" for c, (sm, n) in per_c.items())
+            + f"; at B={B} the rule takes C="
+            + str(tk.cluster_shape(B, {c: n for c, (_, n) in per_c.items()})[0]))
     say("  dynamic shared memory: train_wgrad_partial "
         f"{lib.train_wgrad_smem()} B; conv_gemm_bf16 at tile width "
         + ", ".join(f"{bn}: {lib.conv_stage_bf16_smem(bn)} B" for bn in ck.TILE_WIDTHS)
@@ -1049,6 +1061,25 @@ BEAM_TPU = "captionax/ops/decode_kernel.py:555"
 GREEDY_TPU = "captionax/ops/decode_kernel.py:329"
 
 
+def beam_select_bytes(pp, hp, base, sk) -> int:
+    """Bytes of one beam_select launch from state ``base`` to ``sk``: the
+    partials, h, the histories, tokens and scores read and written, the
+    best-caption state, and the token history of each image whose best
+    caption improved."""
+    improved = int((sk["best_len"] != base["best_len"]).sum().item())
+    return (nbytes(*pp, hp, sk["h"], sk["hist_in"], sk["hist_out"])
+            + 2 * nbytes(sk["tok"], sk["score"])
+            + nbytes(sk["best_val"], sk["best_len"], sk["found"])
+            + improved * (MAX_STEPS + 1) * 4)
+
+
+def greedy_select_bytes(pp, sk, rows: int) -> int:
+    """Bytes of one greedy_select launch ending in state ``sk``: the
+    partials, and for each row still live h copied and its token written."""
+    live = int((sk["done"] == 0).sum().item())
+    return nbytes(*pp) + live * (2 * H * 4 + 4) + rows * 4 * 3
+
+
 def beam_times(model, theta, batches, paths):
     """K1's kernels at step 1 of a full-width batch (bf16 weights).  The
     exit flags are set open, so every timed launch does its whole work."""
@@ -1066,7 +1097,6 @@ def beam_times(model, theta, batches, paths):
     rows = B * dk.K
     vp = w["fc_w"].shape[1]
     C = vp // dk.CHUNK
-    T = MAX_STEPS + 1
     per_batch = N_BATCHES * 2  # the main path serves each batch at f32 and bf16
     out = []
 
@@ -1110,11 +1140,7 @@ def beam_times(model, theta, batches, paths):
     sk, sp = clone_state(base), clone_state(base)
     dk.beam_select(*pp, hp, sk, t, END)
     dk.beam_select_plain(*pp, hp, sp, t, END)
-    improved = int((sk["best_len"] != base["best_len"]).sum().item())
-    sel_bytes = (nbytes(*pp, hp, sk["h"], sk["hist_in"], sk["hist_out"])
-                 + 2 * nbytes(sk["tok"], sk["score"])
-                 + nbytes(sk["best_val"], sk["best_len"], sk["found"])
-                 + improved * T * 4)
+    sel_bytes = beam_select_bytes(pp, hp, base, sk)
     scratch = clone_state(base)
     select = lambda: dk.beam_select(*pp, hp, scratch, t, END)
     scratch_plain = clone_state(base)
@@ -1203,7 +1229,7 @@ def greedy_times(model, theta, batches, paths):
     # the timed launches repeat step t on a state that its first launch has
     # updated: rows still live after it copy h and write their token
     live = int((sk["done"] == 0).sum().item())
-    sel_bytes = nbytes(*pp) + live * (2 * H * 4 + 4) + rows * 4 * 3
+    sel_bytes = greedy_select_bytes(pp, sk, rows)
     scratch = clone_state(base)
     select = lambda: dk.greedy_select(*pp, hp, scratch, t, END)
     scratch_plain = clone_state(base)
@@ -1262,9 +1288,14 @@ def service_step_times(model, batches) -> None:
             device_ms(lambda: select(*parts, hk, scratch, t, END), 50),
         )
         cell_b, cell_f = cell_cost(feats, att1, state["h"], state["tok"], styles, w, hk)
+        sk = clone_state(state)
+        select(*parts, hk, sk, t, END)
+        sel_bytes = (beam_select_bytes(parts, hk, state, sk) if kind == "beam"
+                     else greedy_select_bytes(parts, sk, rows))
         bounds = (bound_ms(cell_b, cell_f, w["fc_w"].dtype),
                   bound_ms(nbytes(hk, w["fc_w"], w["fc_b"], *parts), 2 * rows * H * vp,
-                           w["fc_w"].dtype))
+                           w["fc_w"].dtype),
+                  bound_ms(sel_bytes, 0, w["fc_w"].dtype))
         scratch_plain = clone_state(state)
         plain_times = (
             wall_ms(lambda: cell_plain(feats, att1, state["h"], state["tok"], styles, t, w), 5),
@@ -1273,8 +1304,8 @@ def service_step_times(model, batches) -> None:
         )
         say(f"  {kind} step at the service's batch ({ENC_B} images, {rows} rows, S=3 bank): "
             + ", ".join(f"{n} {ms:.4f} ms" for n, ms in zip(names, times))
-            + f"; bounds {bounds[0][0]:.4f} ms ({bounds[0][1]}), {bounds[1][0]:.4f} ms "
-            f"({bounds[1][1]}); {sum(times):.4f} ms a step; plain versions "
+            + "; bounds " + ", ".join(f"{b:.6f} ms ({by})" for b, by in bounds)
+            + f"; {sum(times):.4f} ms a step; plain versions "
             + ", ".join(f"{ms:.4f}" for ms in plain_times) + f" ms [{CARD}]")
         cell_phases_line(f"cell_step ({kind} rows, the service's batch)",
                          lambda: cell(feats, att1, state["h"], state["tok"], styles, t, w), rows,
@@ -1420,8 +1451,15 @@ TRAIN_LR = 1e-3
 STYLE = 4             # 'factual'
 # (B, T, R, F, E, H): an odd batch (a partial row tile), one row, 49 regions
 SMALL_TRAIN = ((5, 7, 9, 24, 24, 24), (1, 4, 5, 16, 16, 16), (13, 6, 49, 40, 24, 32))
+# shapes that cut the recurrence kernels' cluster tiling, run at every
+# cluster shape that fits (C = 2, 4, 8: M = 16, 32, 64 rows): B = M + 1 for
+# each M, a B that is not a multiple of 16 (with a CTA holding fewer groups
+# than another: H = 40, 5 groups), and T = 1
+CLUSTER_EDGE = ((17, 3, 9, 24, 24, 24), (33, 3, 9, 24, 24, 24), (65, 2, 9, 24, 24, 24),
+                (21, 5, 7, 16, 24, 40), (11, 1, 9, 24, 24, 24))
 # the CPU tests' tolerances (tests/test_torch_train_kernel.py): the forward
-# rtol = atol = 1e-5; a gradient rtol 2e-4, atol max(2e-5 * its scale, 1e-6)
+# rtol = atol = 1e-5; a gradient rtol 2e-4, atol max(2e-5 * its scale, 1e-6);
+# the d_feats fold must equal its plain version (f32 and bf16)
 FWD_RTOL = FWD_ATOL = 1e-5
 GRAD_RTOL, GRAD_ATOL_SCALE, GRAD_ATOL_FLOOR = 2e-4, 2e-5, 1e-6
 # bf16 kernel vs the bf16 plain version, relative to the largest entry: sums
@@ -1433,6 +1471,13 @@ TRAIN_LOSS_RTOL = 1e-3
 TRAIN_SOURCE = "captionax_torch/ops/csrc/train_recurrence.cu"
 K3_FWD_TPU = "captionax/ops/train_kernel.py:76"
 K3_BWD_TPU = "captionax/ops/train_kernel.py:101"
+K3_KERNELS = ("train_fwd_kernel", "train_bwd_recurrence_kernel", "train_feats_fold_kernel")
+# the parts of the recurrence kernels timed apart at full width: the kernel
+# with the part left out (train_kernel.SKIP_*); the part's cost is the
+# whole less that
+K3_PARTS = {"attention": tk.SKIP_ATTENTION, "of it the scores": tk.SKIP_SCORES,
+            "of it the context": tk.SKIP_CONTEXT, "gates + GRU": tk.SKIP_GATES,
+            "dx/dh": tk.SKIP_REVERSE, "attention backward": tk.SKIP_ATTENTION_BACK}
 GRAD_NAMES = ("feats", "att1", "h0", "embeds", "ua_w", "ua_b", "va", "wih_t", "whh_t",
               "bih", "bhh")
 ROW_NAMES = ("x", "dgi", "hp", "dghn", "datt2")
@@ -1464,13 +1509,15 @@ def random_core(b, t, r, f, e, h, cdt, seed):
             rnd(3 * h, sc=0.1), rnd(3 * h, sc=0.1))
 
 
-def check_k3(args, g, what: str, enforce: bool) -> dict:
+def check_k3(args, g, what: str, enforce: bool, shape=None) -> dict:
     """Every K3 kernel against its plain version on the same inputs: the
-    forward's hs; pass 1's per-row gradients, pass-2 rows and d(v_a); pass
-    2a on pass 1's rows; pass 2b on pass 2a's partials; and the eleven
-    gradients of the whole backward.  f32 (enforce) is held to the CPU
-    tests' tolerances; otherwise each relative error is printed and held to
-    BF16_REL_BOUND.  -> max abs error per kernel."""
+    forward's hs; pass 1's per-row gradients, pass-2 rows, d(v_a) partials
+    (one per 8 rows) and the fold's operands; the fold on pass 1's operands;
+    pass 2a on pass 1's rows; pass 2b on pass 2a's partials; and the eleven
+    gradients of the whole backward.  ``shape`` forces the recurrence
+    kernels' cluster size (default: train_kernel.cluster_shape's).  f32
+    (enforce) is held to the CPU tests' tolerances; otherwise each relative
+    error is printed and held to BF16_REL_BOUND.  -> max abs error per kernel."""
     rel = {}
 
     def cmp(got, ref, name, grad=True):
@@ -1483,18 +1530,25 @@ def check_k3(args, g, what: str, enforce: bool) -> dict:
         return err
 
     hp = tk.fused_fwd_plain(*args)
-    errs = {"train_fwd": cmp(tk.fused_fwd(*args), hp, "hs", grad=False)}
-    pp = tk.bwd_recurrence_plain(*args, hp, g)
-    pk = tk.bwd_recurrence(*args, hp, g)
-    e1 = [cmp(pk[i], pp[i], n) for i, n in enumerate(("d_feats", "d_att1", "d_h0", "d_emb"))]
-    e1 += [cmp(pk[4][k], pp[4][k], f"row {k}") for k in ROW_NAMES]
-    e1.append(cmp(pk[5].sum(dim=0), pp[5][0], "d_va (sum of the blocks)"))
+    errs = {"train_fwd": cmp(tk.fused_fwd(*args, shape=shape), hp, "hs", grad=False)}
+    pp = tk.bwd_recurrence_plain(*args, hp, g, fold_operands=True)
+    fold_ops, *pk = tk.bwd_recurrence_parts(*args, hp, g, shape=shape)
+    d_feats = tk.feats_fold(*fold_ops)
+    e1 = [cmp(d_feats, pp[0], "d_feats")]
+    e1 += [cmp(pk[i], pp[i + 1], n) for i, n in enumerate(("d_att1", "d_h0", "d_emb"))]
+    e1 += [cmp(pk[3][k], pp[4][k], f"row {k}") for k in ROW_NAMES]
+    e1.append(cmp(pk[4], pp[5], "d_va partials (8 rows each)"))
+    e1 += [cmp(fold_ops[0], pp[6][0], "w_t"), cmp(fold_ops[1], pp[6][1], "dctx_t")]
     errs["train_bwd_recurrence"] = max(e1)
-    part_k = tk.wgrad_partial(pk[4])
-    part_p = tk.wgrad_partial_plain(pk[4])
+    plain_fold = tk.feats_fold_plain(*fold_ops)
+    require(torch.equal(d_feats, plain_fold), f"{what}: train_feats_fold differs from its plain "
+            "version (the same roundings in the same order: they must be equal)")
+    errs["train_feats_fold"] = cmp(d_feats, plain_fold, "fold on pass 1's operands")
+    part_k = tk.wgrad_partial(pk[3])
+    part_p = tk.wgrad_partial_plain(pk[3])
     errs["train_wgrad_partial"] = cmp(part_k, part_p, "weight-gradient partials")
-    out_k, dva_k = tk.wgrad_reduce(part_k, pk[5])
-    out_p, dva_p = tk.wgrad_reduce_plain(part_k, pk[5])
+    out_k, dva_k = tk.wgrad_reduce(part_k, pk[4])
+    out_p, dva_p = tk.wgrad_reduce_plain(part_k, pk[4])
     errs["train_wgrad_reduce"] = max(cmp(out_k, out_p, "reduced weight gradients"),
                                      cmp(dva_k, dva_p, "reduced d_va"))
     gk = tk.fused_bwd(*args, hp, g)
@@ -1505,6 +1559,17 @@ def check_k3(args, g, what: str, enforce: bool) -> dict:
             + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
     errs["whole backward"] = whole
     return errs
+
+
+def k3_shapes(R_, F_, E_, H_) -> dict:
+    """{(pass, dtype): {C: (dynamic shared memory bytes, clusters the card
+    runs at once)}} of the recurrence kernels at these sizes."""
+    lib = _cuda.library()
+    dev = torch.device(DEVICE)
+    return {(bwd, name): {c: (lib.train_recurrence_smem(int(bwd), int(bf), c, R_, F_, E_, H_),
+                              tk.max_clusters(dev, bwd, bf, c, R_, F_, E_, H_))
+                          for c, _ in tk.CLUSTER_SHAPES}
+            for bwd in (False, True) for name, bf in (("f32", False), ("bf16", True))}
 
 
 # train_wgrad_partial's tilings at their edges, (N, In, H) on random rows:
@@ -1531,8 +1596,10 @@ def wgrad_edges() -> None:
 
 def train_small_exactness():
     """K3 at small shapes in f32, with an odd batch (a partial row tile)
-    and a batch of one row; the weight-gradient pass at its tiling's edges;
-    and d(v_a bias) = 0 through the autograd Function on the card."""
+    and a batch of one row; at the shapes that cut the cluster tiling
+    (CLUSTER_EDGE), at every cluster shape that fits, f32 and bf16; the
+    weight-gradient pass at its tiling's edges; and d(v_a bias) = 0 through
+    the autograd Function on the card."""
     wgrad_edges()
     for i, shape in enumerate(SMALL_TRAIN):
         b, t = shape[:2]
@@ -1542,6 +1609,21 @@ def train_small_exactness():
         errs = check_k3(args, g, f"small {shape}", True)
         say(f"  small (B, T, R, F, E, H) = {shape}, f32: max abs err "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    for i, shape in enumerate(CLUSTER_EDGE):
+        b, t, r_, f_, e_, h_ = shape
+        fits = k3_shapes(r_, f_, e_, h_)
+        for cdt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            args = random_core(*shape, cdt, 70 + i)
+            g = torch.randn((b, t, h_), generator=torch.Generator(device=DEVICE)
+                            .manual_seed(80 + i), device=DEVICE)
+            for c, m in tk.CLUSTER_SHAPES:
+                if min(fits[(bwd, name)][c][1] for bwd in (False, True)) < 1:
+                    continue
+                errs = check_k3(args, g, f"edge {shape} {name} C={c}", cdt == torch.float32,
+                                shape=c)
+                say(f"  edge (B, T, R, F, E, H) = {shape}, {name}, clusters of {c} CTAs "
+                    f"({m} rows): max abs err "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     s = SMALL
     p = attention_gru_init(gen(3), s["NF"], s["F"], s["E"], s["H"], s["V"], device=DEVICE)
     raw = torch.randn((5, s["R"], s["NF"]), generator=torch.Generator(device=DEVICE)
@@ -1551,7 +1633,7 @@ def train_small_exactness():
     reset_k3()
     loss, grads = tsteps._value_and_grad(
         lambda q: tk.fused_teacher_forced_hidden(q, raw, caps)[0].square().sum(), p)
-    require(tk.BWD.launches == 1, "the backward did not run through K3")
+    require(tk.BWD.launches == 1 and tk.FOLD.launches == 1, "the backward did not run through K3")
     require(not bool(grads["attention"]["v_a"]["b"].any()), "d(v_a bias) is not 0")
     require(bool(grads["attention"]["U_a"]["b"].any()), "d(U_a bias) is 0")
     say("  d(v_a bias) through the autograd Function: exactly 0")
@@ -1585,6 +1667,12 @@ def train_full_width(model, batch):
         g = torch.randn((B, T_CAP, H), generator=torch.Generator(device=DEVICE).manual_seed(8),
                         device=DEVICE) * 1e-3
         name = "f32" if cdt == torch.float32 else "bf16"
+        per_c = k3_shapes(*(int(x) for x in (args[0].shape[1], args[0].shape[2],
+                                             args[3].shape[2], H)))
+        say(f"  full width {name}: clusters of "
+            + ", ".join(f"{'pass 1' if bwd else 'forward'} "
+                        f"{tk.cluster_shape(B, {c: n for c, (_, n) in per_c[(bwd, name)].items()})}"
+                        for bwd in (False, True)) + " (C, M)")
         out[name] = check_k3(args, g, f"full width {name}", enforce)
         say(f"  full width B={B}, T={T_CAP}, {name} compute: max abs err "
             + ", ".join(f"{k} {v:.3e}" for k, v in out[name].items()) + f" [{CARD}]")
@@ -1720,19 +1808,39 @@ def train_steps(model, batch):
 
 
 def k3_cost(args, hs):
-    """Bytes and operations of the forward and of pass 1 at these inputs."""
+    """Bytes and operations of the forward, of pass 1 and of the fold at
+    these inputs: each input read once, each output written once."""
     feats, att1 = args[0], args[1]
     Bn, R_, F_ = feats.shape
-    T_ = args[3].shape[1]
+    T_, E_ = args[3].shape[1], args[3].shape[2]
     In, H_ = args[7].shape[0], args[2].shape[1]
     G = 3 * H_
     ins = nbytes(*args)
     fwd_flops = 2 * Bn * T_ * (H_ * H_ + R_ * H_ + R_ * F_ + In * G + H_ * G)
     rows = T_ * Bn * (In + G + 3 * H_) * 4
-    bwd_flops = fwd_flops + 2 * Bn * T_ * (In * G + H_ * G + 2 * R_ * F_ + 2 * R_ * H_ + H_ * H_)
-    bwd_bytes = (ins + 2 * nbytes(hs) + nbytes(feats, att1) + Bn * H_ * 4
-                 + Bn * T_ * args[3].shape[2] * 4 + rows)
-    return (ins + nbytes(hs), fwd_flops), (bwd_bytes, bwd_flops)
+    fold_in = Bn * T_ * (R_ * 4 + F_ * feats.element_size())
+    bwd_flops = fwd_flops + 2 * Bn * T_ * (In * G + H_ * G + R_ * F_ + 2 * R_ * H_ + H_ * H_)
+    bwd_bytes = (ins + 2 * nbytes(hs) + nbytes(att1) + Bn * H_ * 4 + Bn * T_ * E_ * 4 + rows
+                 + fold_in + (Bn * H_) * 4)
+    fold = (fold_in + nbytes(feats), 2 * Bn * T_ * R_ * F_)
+    return (ins + nbytes(hs), fwd_flops), (bwd_bytes, bwd_flops), fold
+
+
+def k3_parts_ms(args, hs, g) -> dict:
+    """Device times of the forward and of pass 1 at these inputs with each
+    part left out (K3_PARTS), the whole, and with every part left out (the
+    exchanges, barriers and loads that remain)."""
+    fwd = lambda sk: device_ms(lambda: tk.fused_fwd(*args, skip=sk), 5)
+    bwd = lambda sk: device_ms(lambda: tk.bwd_recurrence_parts(*args, hs, g, skip=sk), 3)
+    every = tk.SKIP_ATTENTION | tk.SKIP_GATES
+    out = {"fwd": {"whole": fwd(0), "rest": fwd(every)},
+           "bwd": {"whole": bwd(0), "rest": bwd(every | tk.SKIP_REVERSE | tk.SKIP_ATTENTION_BACK)}}
+    for part, bit in K3_PARTS.items():
+        if bit not in (tk.SKIP_REVERSE, tk.SKIP_ATTENTION_BACK):
+            out["fwd"][part] = out["fwd"]["whole"] - fwd(bit)
+        if bit not in (tk.SKIP_SCORES, tk.SKIP_CONTEXT):
+            out["bwd"][part] = out["bwd"]["whole"] - bwd(bit)
+    return out
 
 
 def train_times(model, batch, launches, errs):
@@ -1749,9 +1857,16 @@ def train_times(model, batch, launches, errs):
         hs = tk.fused_fwd(*args)
         g = torch.randn((B, T_CAP, H), generator=torch.Generator(device=DEVICE).manual_seed(8),
                         device=DEVICE) * 1e-3
-        d_feats, d_att1, d_h0, d_emb, rows, dva_part = tk.bwd_recurrence(*args, hs, g)
+        fold_ops, d_att1, d_h0, d_emb, rows, dva_part = tk.bwd_recurrence_parts(*args, hs, g)
         partial = tk.wgrad_partial(rows)
-        (fb, ff), (bb, bf) = k3_cost(args, hs)
+        (fb, ff), (bb, bf), (ob, of) = k3_cost(args, hs)
+        parts = k3_parts_ms(args, hs, g)
+        for p_name, ms_by in parts.items():
+            say(f"  {'train_fwd' if p_name == 'fwd' else 'train_bwd_recurrence'} ({name} "
+                f"compute) by part: whole {ms_by['whole']:.4f} ms; "
+                + ", ".join(f"{k} {v:.4f}" for k, v in ms_by.items() if k not in ("whole", "rest"))
+                + f" (each the whole less the kernel without it); with every part left out "
+                f"{ms_by['rest']:.4f} [{CARD}]")
         ones = lambda a: torch.cat([a, torch.ones_like(a[:, :1])], dim=1)
         x1, hp1 = ones(rows["x"]), ones(rows["hp"])
         dgh = torch.cat([rows["dgi"][:, :2 * H], rows["dghn"]], dim=1)
@@ -1762,8 +1877,11 @@ def train_times(model, batch, launches, errs):
         specs = [
             ("train_fwd", tk.FWD, K3_FWD_TPU, lambda: tk.fused_fwd(*args),
              lambda: tk.fused_fwd_plain(*args), None, fb, ff, cdt),
-            ("train_bwd_recurrence", tk.BWD, K3_BWD_TPU, lambda: tk.bwd_recurrence(*args, hs, g),
+            ("train_bwd_recurrence", tk.BWD, K3_BWD_TPU,
+             lambda: tk.bwd_recurrence_parts(*args, hs, g),
              lambda: tk.bwd_recurrence_plain(*args, hs, g), None, bb, bf, cdt),
+            ("train_feats_fold", tk.FOLD, K3_BWD_TPU, lambda: tk.feats_fold(*fold_ops),
+             lambda: tk.feats_fold_plain(*fold_ops), None, ob, of, cdt),
             ("train_wgrad_partial", tk.WGRAD, K3_BWD_TPU, lambda: tk.wgrad_partial(rows),
              lambda: tk.wgrad_partial_plain(rows), lib_wgrad,
              nbytes(*rows.values(), partial),
