@@ -44,10 +44,10 @@ SIGNATURES = {
     "cell_step_bf16": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 12 + [_P],
     "logits_top3_partial_f32": [_P] * 8 + [_I] * 3 + [_P],
     "logits_top3_partial_bf16": [_P] * 8 + [_I] * 4 + [_P],
-    "beam_select": [_P] * 15 + [_I] * 6 + [_P],
+    "beam_select": [_P] * 15 + [_I] * 7 + [_P],
     "logits_top1_partial_f32": [_P] * 6 + [_I] * 3 + [_P],
     "logits_top1_partial_bf16": [_P] * 6 + [_I] * 4 + [_P],
-    "greedy_select": [_P] * 8 + [_I] * 6 + [_P],
+    "greedy_select": [_P] * 8 + [_I] * 8 + [_P],
     "train_fwd_f32": [_P] * 11 + [_I] * 8 + [_P],
     "train_fwd_bf16": [_P] * 11 + [_I] * 8 + [_P],
     "train_bwd_recurrence_f32": [_P] * 25 + [_I] * 8 + [_P],

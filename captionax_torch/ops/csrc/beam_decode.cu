@@ -31,8 +31,9 @@
 //                            rows and several chunks a block; with f32
 //                            weights one 64-row x 128-column tile a block
 //                            on the CUDA cores.
-//   (c) beam_select          one warp per image: merges the partials into
-//                            each row's top-3 and logsumexp, takes the
+//   (c) beam_select          a warp per beam row (namespace sel): merges
+//                            the partials into each row's top-3 and
+//                            logsumexp on warp reductions, takes the
 //                            image's top-3 of its 9 candidates, reorders h
 //                            and the token history by parent, and retires
 //                            completed beams into the best completion.
@@ -41,8 +42,13 @@
 // vocab product of (b) is 2*3072*200*9728 = 12 GFLOP against ~11 MB of
 // bytes, so (b) is bound by operations; (a) moves the 49-region features
 // (~40 MB in bf16), does 2.2 GFLOP of gate products, 0.25 of U_a h and 30M
-// tanhf; (c) moves ~20 MB.  (c) computes in f32 on the CUDA cores (bf16 is
-// a storage type, widened with __bfloat162float).
+// tanhf; (c) moves ~13.6 MB (0.0041 ms at the memory's rate) and is bound
+// by latency: its first design ran a warp per image, the three rows' merges
+// one after another as chains of shuffles and expf, then the copies;
+// the redesign (namespace sel, below) runs a warp per row, issues every
+// load in one round before it tests the exit flag, merges on redux.sync,
+// and copies from shared memory.  (c) computes in f32 on the CUDA cores
+// (bf16 is a storage type, widened with __bfloat162float).
 //
 // (a) with bf16 weights.  Its first design ran the gate products as f32
 // FMAs, a thread per hidden column, every block reading all 720 KB of the
@@ -496,107 +502,319 @@ __global__ void __launch_bounds__(256, 4) logits_top3_partial_kernel(
 }
 
 // ---------------------------------------------------------------- (c)
-// One warp per image, 4 images per block.  hist_in/hist_out are the token
-// histories [rows, T] before and after this step (the host swaps them).
-// live[0] gates this step; live[1] is set when some row stays improvable.
-__global__ void __launch_bounds__(128) beam_select_kernel(
+// A warp per beam row, an image's three warps a group with its own named
+// barrier, `images` images a block (decode_kernel.select_images_per_block).
+// hist_in/hist_out are the token histories [rows, T] before and after this
+// step (the host swaps them).  live[0] gates this step; live[1] is set when
+// some row stays improvable.
+//
+// 1. The image's three rows of h_new and of hist_in go to shared memory by
+//    cp.async (16 bytes where H % 4 == 0 and h, h_new are 16-byte aligned,
+//    else 4), in flight while the rows merge: the reorder reads them there.
+// 2. Each warp loads its row's partials in one round of 16-byte vectors
+//    (pv, pi: 3C words; pm, ps: C words; a scalar head and tail where a
+//    row's base is not 16-byte aligned: row_split; the vectors past a
+//    warp's 64 in further rounds), and each lane keeps the top-3 of its own
+//    candidates under (key desc, index asc).
+// 3. The row's top-3: three rounds of first_max (redux.sync max of the
+//    lanes' head keys, then min of the head indices at that key); the
+//    first lane at both pops its head.  The logsumexp in the plain
+//    version's form: M by a max reduction, then sum s * exp(m - M), one expf
+//    a chunk, and a shuffle sum.  Lanes 0-2 write the row's candidates
+//    score + (v - logz) to shared memory at beam * 3 + rank.
+// 4. After the image's barrier, every warp takes the image's top-3 of the 9
+//    (lanes 0-8, beam-major order, three rounds of first_max), so every
+//    thread knows the parents, tokens and the best completion (the first
+//    maximum); all 96 threads then copy h (float4) and the histories by
+//    parent, and best_seq on improvement; threads 0-2 write the scores and
+//    tokens, thread 0 the best completion and the exit flag.
+namespace sel {
+
+using namespace hopper;
+
+constexpr int kImageThreads = 96;  // three warps: one per beam row
+constexpr int kMaxImages = 4;      // images a block: named barriers 1 .. 4
+constexpr int kCandWords = 20;     // the 9 candidates' values and indices, padded
+
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+// shared-memory words of an image: h_new's rows, hist_in's rows, candidates
+__host__ __device__ constexpr int image_words(int H, int T) {
+  return pad4(3 * H) + pad4(3 * T) + kCandWords;
+}
+
+__device__ __forceinline__ void image_sync(int slot) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(slot + 1), "n"(kImageThreads) : "memory");
+}
+
+// a lane's top-3 under (key desc, index asc), with the values
+struct KeyTop3 {
+  unsigned k[3];
+  int i[3];
+  float v[3];
+};
+
+__device__ __forceinline__ void key_top3_init(KeyTop3& t) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    t.k[q] = kNoKey;
+    t.i[q] = INT_MAX;
+    t.v[q] = -INFINITY;
+  }
+}
+
+// branch-free: lanes of a warp never diverge here
+__device__ __forceinline__ void key_top3_insert(KeyTop3& t, float v, int i) {
+  const unsigned k = order_key(v);
+  const bool a0 = key_ahead(k, i, t.k[0], t.i[0]), a1 = key_ahead(k, i, t.k[1], t.i[1]),
+             a2 = key_ahead(k, i, t.k[2], t.i[2]);
+  t.k[2] = a1 ? t.k[1] : (a2 ? k : t.k[2]);
+  t.i[2] = a1 ? t.i[1] : (a2 ? i : t.i[2]);
+  t.v[2] = a1 ? t.v[1] : (a2 ? v : t.v[2]);
+  t.k[1] = a0 ? t.k[0] : (a1 ? k : t.k[1]);
+  t.i[1] = a0 ? t.i[0] : (a1 ? i : t.i[1]);
+  t.v[1] = a0 ? t.v[0] : (a1 ? v : t.v[1]);
+  t.k[0] = a0 ? k : t.k[0];
+  t.i[0] = a0 ? i : t.i[0];
+  t.v[0] = a0 ? v : t.v[0];
+}
+
+template <typename T>
+__device__ __forceinline__ T pick3(T a, T b, T c, int j) {
+  return j == 0 ? a : (j == 1 ? b : c);
+}
+
+__global__ void __launch_bounds__(kMaxImages * kImageThreads) beam_select_kernel(
     const float* __restrict__ pv, const int* __restrict__ pi,
     const float* __restrict__ pm, const float* __restrict__ ps,
     const float* __restrict__ h_new, float* __restrict__ h, int* __restrict__ tok,
     float* __restrict__ score, const int* __restrict__ hist_in,
     int* __restrict__ hist_out, int* __restrict__ best_seq,
     float* __restrict__ best_val, int* __restrict__ best_len,
-    int* __restrict__ found, int* __restrict__ live, int n_img, int n_chunks, int H,
-    int T, int t, int end_id) {
-  if (!step_runs(live)) return;
-  const int lane = threadIdx.x & 31;
-  const int img = blockIdx.x * 4 + (threadIdx.x >> 5);
-  if (img >= n_img) return;  // uniform across the warp
+    int* __restrict__ found, int* __restrict__ live, int n_img, int n_chunks, int H, int T,
+    int t, int end_id) {
+  const bool runs = step_runs(live);  // tested once the first round of loads is issued
+  extern __shared__ __align__(16) float sel_smem[];
+  const int slot = threadIdx.x / kImageThreads, it = threadIdx.x % kImageThreads;
+  const int beam = it >> 5, lane = threadIdx.x & 31;
+  const int img = blockIdx.x * (blockDim.x / kImageThreads) + slot;
+  if (img >= n_img) return;  // uniform across the image's three warps
+  float* s_h = sel_smem + slot * image_words(H, T);
+  int* s_hist = reinterpret_cast<int*>(s_h + pad4(3 * H));
+  float* s_cv = reinterpret_cast<float*>(s_hist + pad4(3 * T));
+  int* s_ci = reinterpret_cast<int*>(s_cv + 9);
 
-  float v9[9];
-  int i9[9];
+  // 1. the image's rows of h_new and hist_in, in flight during the merge
+  const bool vec =
+      (H & 3) == 0 &&
+      ((reinterpret_cast<uintptr_t>(h_new) | reinterpret_cast<uintptr_t>(h)) & 15) == 0;
+  const size_t slab = (size_t)img * 3 * H;
+  if (vec) {
+    for (int e = it; e < 3 * H / 4; e += kImageThreads)
+      cp_async16(smem_addr(s_h + 4 * e), h_new + slab + 4 * e, true);
+  } else {
+    for (int e = it; e < 3 * H; e += kImageThreads) cp_async4(smem_addr(s_h + e), h_new + slab + e);
+  }
+  for (int e = it; e < 3 * T; e += kImageThreads)
+    cp_async4(smem_addr(s_hist + e), hist_in + (size_t)img * 3 * T + e);
+  cp_async_commit();
+
+  // 2. this warp's row: its loads in one round
+  const int row = img * 3 + beam, n3 = 3 * n_chunks;
+  const float sc = score[row];
+  const float best_old = best_val[img];
+  // the lane's chunks of pm, ps in the first round: two float4 (slots 0-7),
+  // a head and a tail scalar (8, 9); each slot is valid where its load was
+  // made.  Rows of more than 64 vectors (C > 256) read the rest after it.
+  float m_[10], s_[10];
+  bool ok[10];
+  const float* rm = pm + (size_t)row * n_chunks;
+  const float* rs = ps + (size_t)row * n_chunks;
+  const RowSplit spm = row_split((size_t)row * n_chunks, n_chunks);
+  const float4* rm4 = reinterpret_cast<const float4*>(rm + spm.head);
+  const float4* rs4 = reinterpret_cast<const float4*>(rs + spm.head);
 #pragma unroll
-  for (int b = 0; b < 3; ++b) {
-    const int row = img * 3 + b;
-    Top3 t3;
-    top3_init(t3);
-    float m = -INFINITY, s = 0.f;
-    for (int c = lane; c < n_chunks; c += 32) {
-      const size_t o = (size_t)row * n_chunks + c;
+  for (int u = 0; u < 2; ++u) {
+    const int k = lane + 32 * u;
+    float4 a = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY), b = {};
+    if (k < spm.body) a = rm4[k], b = rs4[k];
+    m_[4 * u] = a.x, m_[4 * u + 1] = a.y, m_[4 * u + 2] = a.z, m_[4 * u + 3] = a.w;
+    s_[4 * u] = b.x, s_[4 * u + 1] = b.y, s_[4 * u + 2] = b.z, s_[4 * u + 3] = b.w;
 #pragma unroll
-      for (int q = 0; q < 3; ++q) top3_insert(t3, pv[o * 3 + q], pi[o * 3 + q]);
-      lse_merge(m, s, pm[o], ps[o]);
-    }
-    top3_butterfly(t3, 32);
-    lse_butterfly(m, s, 32);
-    const float logz = m + logf(s);
-    const float sc = score[row];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      v9[b * 3 + q] = sc + (t3.v[q] - logz);
-      i9[b * 3 + q] = t3.i[q];
-    }
+    for (int q = 0; q < 4; ++q) ok[4 * u + q] = k < spm.body;
+  }
+  {
+    const int tl = spm.head + 4 * spm.body;
+    ok[8] = lane < spm.head;
+    ok[9] = lane < spm.tail;
+    m_[8] = ok[8] ? rm[lane] : -INFINITY;
+    s_[8] = ok[8] ? rs[lane] : 0.f;
+    m_[9] = ok[9] ? rm[tl + lane] : -INFINITY;
+    s_[9] = ok[9] ? rs[tl + lane] : 0.f;
   }
 
-  Top3 g;  // the image's top-3 of its 9 candidates; index = beam*3 + rank
-  top3_init(g);
+  // the lane's candidates of pv, pi: 16-byte vectors, two a lane per pass
+  const float* rv = pv + (size_t)row * n3;
+  const int* ri = pi + (size_t)row * n3;
+  const RowSplit sp = row_split((size_t)row * n3, n3);
+  const float4* rv4 = reinterpret_cast<const float4*>(rv + sp.head);
+  const int4* ri4 = reinterpret_cast<const int4*>(ri + sp.head);
+  float4 v[2];
+  int4 x[2];
+  auto load = [&](int k0) {
 #pragma unroll
-  for (int q = 0; q < 9; ++q) top3_insert(g, v9[q], q);
-  int ntok[3], par[3];
-  bool done[3];
-  float cbest = kNegInf;
-  int win = 0;
+    for (int u = 0; u < 2; ++u) {
+      const int k = k0 + lane + 32 * u;
+      if (k < sp.body) {
+        v[u] = rv4[k];
+        x[u] = ri4[k];
+      }
+    }
+  };
+  KeyTop3 top;
+  key_top3_init(top);
+  auto insert = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (k0 + lane + 32 * u < sp.body) {
+        key_top3_insert(top, v[u].x, x[u].x);
+        key_top3_insert(top, v[u].y, x[u].y);
+        key_top3_insert(top, v[u].z, x[u].z);
+        key_top3_insert(top, v[u].w, x[u].w);
+      }
+  };
+  load(0);
+  if (!runs) {  // a closed gate: nothing is written (the copies land first)
+    cp_async_wait<0>();
+    return;
+  }
+  insert(0);
+  for (int k0 = 64; k0 < sp.body; k0 += 64) {
+    load(k0);
+    insert(k0);
+  }
+  if (lane < sp.head) key_top3_insert(top, rv[lane], ri[lane]);
+  const int tl = sp.head + 4 * sp.body;
+  if (lane < sp.tail) key_top3_insert(top, rv[tl + lane], ri[tl + lane]);
+
+  // 3. the row's logsumexp and top-3 (the sums in the lane's load order:
+  // its vectors, then the head and the tail)
+  float mx = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < 10; ++q) mx = fmaxf(mx, m_[q]);
+  for (int k = lane + 64; k < spm.body; k += 32) {
+    const float4 a = rm4[k];
+    mx = fmaxf(mx, fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)));
+  }
+  const float M = key_value(__reduce_max_sync(0xffffffffu, order_key(mx)));
+  float sum = 0.f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    if (ok[q]) sum += s_[q] * expf(m_[q] - M);
+  for (int k = lane + 64; k < spm.body; k += 32) {
+    const float4 a = rm4[k], b = rs4[k];
+    sum += b.x * expf(a.x - M);
+    sum += b.y * expf(a.y - M);
+    sum += b.z * expf(a.z - M);
+    sum += b.w * expf(a.w - M);
+  }
+  if (ok[8]) sum += s_[8] * expf(m_[8] - M);
+  if (ok[9]) sum += s_[9] * expf(m_[9] - M);
+  const float logz = M + logf(warp_sum(sum));
+
+  float got[3];
+  int won[3], idx[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    unsigned kmax;
+    first_max(0xffffffffu, top.k[0], top.i[0], kmax, idx[q]);
+    won[q] = __ffs(__ballot_sync(0xffffffffu, top.k[0] == kmax && top.i[0] == idx[q])) - 1;
+    got[q] = top.v[0];
+    if (lane == won[q]) {  // pop the head
+      top.k[0] = top.k[1], top.i[0] = top.i[1], top.v[0] = top.v[1];
+      top.k[1] = top.k[2], top.i[1] = top.i[2], top.v[1] = top.v[2];
+      top.k[2] = kNoKey, top.i[2] = INT_MAX, top.v[2] = -INFINITY;
+    }
+  }
+  float val[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) val[q] = __shfl_sync(0xffffffffu, got[q], won[q]);
+  if (lane < 3) {
+    s_cv[beam * 3 + lane] = sc + (pick3(val[0], val[1], val[2], lane) - logz);
+    s_ci[beam * 3 + lane] = pick3(idx[0], idx[1], idx[2], lane);
+  }
+  cp_async_wait<0>();
+  image_sync(slot);
+
+  // 4. the image's top-3 of its 9 candidates (beam-major; first maximum)
+  unsigned ck = lane < 9 ? order_key(s_cv[lane]) : kNoKey;
+  int cand[3];
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
-    int sel = g.i[j];
-    ntok[j] = 0;
+    unsigned kmax;
+    first_max(0xffffffffu, ck, lane, kmax, cand[j]);
+    if (lane == cand[j]) ck = kNoKey;
+  }
+  float gv[3], cbest = kNegInf;
+  int ntok[3], par[3], win = 0;
+  bool done[3];
 #pragma unroll
-    for (int q = 0; q < 9; ++q)
-      if (q == sel) ntok[j] = i9[q];  // static indexing keeps v9/i9 in registers
-    par[j] = sel / 3;
-    done[j] = ntok[j] == end_id && g.v[j] > kNegInf / 2;
-    const float cval = done[j] ? g.v[j] : kNegInf;
+  for (int j = 0; j < 3; ++j) {
+    gv[j] = s_cv[cand[j]];
+    ntok[j] = s_ci[cand[j]];
+    par[j] = cand[j] / 3;
+    done[j] = ntok[j] == end_id && gv[j] > kNegInf / 2;
+    const float cval = done[j] ? gv[j] : kNegInf;
     if (cval > cbest) {  // first maximum wins
       cbest = cval;
       win = j;
     }
   }
-  const float best_old = best_val[img];
   const bool improve = cbest > best_old && cbest > kNegInf / 2;
 
-  for (int j = 0; j < 3; ++j) {
-    const float* src = h_new + (size_t)(img * 3 + par[j]) * H;
-    float* dst = h + (size_t)(img * 3 + j) * H;
-    for (int e = lane; e < H; e += 32) dst[e] = src[e];
-  }
-  for (int j = 0; j < 3; ++j) {
-    const int* src = hist_in + (size_t)(img * 3 + par[j]) * T;
-    int* dst = hist_out + (size_t)(img * 3 + j) * T;
-    for (int p = lane; p < T; p += 32) {
-      const int v = p == t + 1 ? ntok[j] : src[p];
-      dst[p] = v;
-      if (improve && j == win) best_seq[(size_t)img * T + p] = v;
+  // the reorder by parent, by all of the image's threads
+  if (vec) {
+    const int H4 = H >> 2;
+    float4* dst = reinterpret_cast<float4*>(h + slab);
+    const float4* src = reinterpret_cast<const float4*>(s_h);
+    for (int e = it; e < 3 * H4; e += kImageThreads) {
+      const int j = e / H4;
+      dst[e] = src[pick3(par[0], par[1], par[2], j) * H4 + e - j * H4];
+    }
+  } else {
+    for (int e = it; e < 3 * H; e += kImageThreads) {
+      const int j = e / H;
+      h[slab + e] = s_h[pick3(par[0], par[1], par[2], j) * H + e - j * H];
     }
   }
-  __syncwarp();  // every lane has read score[] and best_val[] above
-  if (lane == 0) {
+  int* out = hist_out + (size_t)img * 3 * T;
+  for (int e = it; e < 3 * T; e += kImageThreads) {
+    const int j = e / T, p = e - j * T;
+    const int v = p == t + 1 ? pick3(ntok[0], ntok[1], ntok[2], j)
+                             : s_hist[pick3(par[0], par[1], par[2], j) * T + p];
+    out[e] = v;
+    if (improve && j == win) best_seq[(size_t)img * T + p] = v;
+  }
+  const float best_new = improve ? cbest : best_old;
+  bool improvable = false;
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    improvable = improvable || (done[j] ? kNegInf : gv[j]) - best_new > 0.f;
+  if (it < 3) {
+    score[img * 3 + it] = pick3(done[0], done[1], done[2], it) ? kNegInf
+                                                                : pick3(gv[0], gv[1], gv[2], it);
+    tok[img * 3 + it] = pick3(ntok[0], ntok[1], ntok[2], it);
+  }
+  if (it == 0) {
     if (improve) {
       best_val[img] = cbest;
       best_len[img] = t + 2;
     }
-    const float best_new = improve ? cbest : best_old;
     if (done[0] || done[1] || done[2]) found[img] = 1;
-    bool improvable = false;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float sc = done[j] ? kNegInf : g.v[j];
-      score[img * 3 + j] = sc;
-      tok[img * 3 + j] = ntok[j];
-      improvable = improvable || sc - best_new > 0.f;
-    }
     if (improvable && live != nullptr) live[1] = 1;
   }
 }
+
+}  // namespace sel
 
 // The arguments of the f32 cell entry, in the order of the C interface.
 struct CellArgs {
@@ -1264,17 +1482,28 @@ int logits_top3_partial_bf16(const void* h, const void* fc_w, const void* fc_b, 
 // the dynamic shared memory of the bf16 vocab products at depth H (bytes)
 int vocab_product_smem(int H) { return vocab::smem_bytes(H); }
 
+// images: images a block (decode_kernel.select_images_per_block)
 int beam_select(const void* pv, const void* pi, const void* pm, const void* ps,
                 const void* h_new, void* h, void* tok, void* score, const void* hist_in,
                 void* hist_out, void* best_seq, void* best_val, void* best_len, void* found,
                 void* live, int n_img, int n_chunks, int H, int T, int t, int end_id,
-                void* stream) {
-  const dim3 grid((n_img + 3) / 4);
-  beam_select_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const float*)pv, (const int*)pi, (const float*)pm, (const float*)ps,
-      (const float*)h_new, (float*)h, (int*)tok, (float*)score, (const int*)hist_in,
-      (int*)hist_out, (int*)best_seq, (float*)best_val, (int*)best_len, (int*)found,
-      (int*)live, n_img, n_chunks, H, T, t, end_id);
+                int images, void* stream) {
+  if (images < 1 || images > sel::kMaxImages || n_img < 1 || n_chunks < 1 || H < 1 || T < 1 ||
+      ((reinterpret_cast<uintptr_t>(pv) | reinterpret_cast<uintptr_t>(pi) |
+        reinterpret_cast<uintptr_t>(pm) | reinterpret_cast<uintptr_t>(ps)) & 15))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * images * sel::image_words(H, T);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(sel::beam_select_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sel::beam_select_kernel<<<(n_img + images - 1) / images, images * sel::kImageThreads, smem,
+                            (cudaStream_t)stream>>>(
+      (const float*)pv, (const int*)pi, (const float*)pm, (const float*)ps, (const float*)h_new,
+      (float*)h, (int*)tok, (float*)score, (const int*)hist_in, (int*)hist_out, (int*)best_seq,
+      (float*)best_val, (int*)best_len, (int*)found, (int*)live, n_img, n_chunks, H, T, t,
+      end_id);
   return (int)cudaGetLastError();
 }
 

@@ -9,16 +9,23 @@
 //   (vocab_tile_product); with bf16 weights 128-row tiles on the tensor
 //   cores, h split into three exact bf16 terms (vocab::product, wgmma),
 //   that hand each 128-column chunk's f32 accumulators to an epilogue;
+// - the select kernels' warp reductions (order_key, first_max on
+//   redux.sync), the 16-byte split of a row of partials (row_split), and
+//   programmatic dependent launch (wait_prior_grid, launch_maybe_pdl);
 // - the early-exit gate: `live` points at this step's flag in a device
 //   array run[max_steps + 1] (run[0] = 1, the rest 0); every kernel of step
-//   t returns at entry when run[t] == 0, and the select kernel of step t
-//   stores 1 into run[t + 1] when some row can still change the outputs.
+//   t returns at entry when run[t] == 0 (the select kernels once their
+//   first round of loads is issued, having written nothing), and the select
+//   kernel of step t stores 1 into run[t + 1] when some row can still change
+//   the outputs.
 //   Readers of run[t] and the writer of run[t + 1] never touch the same
 //   word in one launch, so the flag needs no reset and no host read.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <climits>
 
 #include "wgmma_common.cuh"
 
@@ -53,6 +60,90 @@ __device__ __forceinline__ bool ahead(float va, int ia, float vb, int ib) {
 // True when this step runs: no gate, or the gate's flag is set.
 __device__ __forceinline__ bool step_runs(const int* live) {
   return live == nullptr || *live != 0;
+}
+
+// ---------------------------------------------------------------- selection
+// The select kernels (c) and (c1) merge per-chunk partials with warp
+// reductions on redux.sync, which compare 32-bit integers.
+//
+// order_key(x) is an unsigned key whose order is x's: key(a) > key(b)
+// exactly when a > b, with -0.0 and +0.0 one value (the reference's compare)
+// and -inf (key 0x007FFFFF) below every finite value; kNoKey = 0 stands for
+// "no candidate" and ranks below all of them.  NaN is not ordered.  The
+// order (value desc, index asc) of `ahead` is then (key desc, index asc):
+// the maximum key over the lanes, then the least index among the lanes that
+// hold it.
+constexpr unsigned kNoKey = 0u;
+
+__device__ __forceinline__ unsigned order_key(float x) {
+  unsigned b = __float_as_uint(x);
+  if (b == 0x80000000u) b = 0u;  // -0.0 -> +0.0
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+__device__ __forceinline__ bool key_ahead(unsigned ka, int ia, unsigned kb, int ib) {
+  return ka > kb || (ka == kb && ia < ib);
+}
+
+// The first of the lanes of `mask` under (key desc, index asc), on every lane
+// of the mask: its key and index.
+__device__ __forceinline__ void first_max(unsigned mask, unsigned key, int idx, unsigned& kmax,
+                                          int& imin) {
+  kmax = __reduce_max_sync(mask, key);
+  imin = __reduce_min_sync(mask, key == kmax ? idx : INT_MAX);
+}
+
+// A row's n partials from element `off` of arrays whose bases are 16-byte
+// aligned: `head` scalars up to the first 16-byte boundary, `body` 16-byte
+// vectors, `tail` scalars (decode_kernel.row_split).
+struct RowSplit {
+  int head, body, tail;
+};
+
+__device__ __forceinline__ RowSplit row_split(size_t off, int n) {
+  const int head = min(n, (int)((4 - (off & 3)) & 3));
+  const int body = (n - head) >> 2;
+  return {head, body, n - head - 4 * body};
+}
+
+// Programmatic dependent launch: a kernel launched with the
+// programmatic-serialization attribute may start before the kernel ahead of
+// it ends; it waits here, before it reads anything, until that kernel has
+// finished and its writes are visible.  Without the attribute, a no-op.
+__device__ __forceinline__ void wait_prior_grid() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Lets the kernel that follows this one on the stream, when it is launched
+// with the attribute, be scheduled now (it waits in wait_prior_grid).
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// 4 bytes global -> shared, asynchronously
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// Launches `kernel`, with programmatic stream serialization when `pdl` is set.
+template <typename... Params, typename... Args>
+cudaError_t launch_maybe_pdl(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                             cudaStream_t stream, bool pdl, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 // acc[m][n] = sum_k h[row0 + ty + 16m, k] * fc_w[k, col0 + tx + 16n] for the

@@ -13,7 +13,7 @@
 //                             f32 on the CUDA cores), then each row's
 //                             maximum of each 128-column chunk and its
 //                             first argmax;
-//   (c1) greedy_select        one warp per row: merges the chunk partials,
+//   (c1) greedy_select        a warp a row: merges the chunk partials on redux.sync,
 //                             writes the emitted token, retires the row on
 //                             </s>, keeps a retired row's h and token.
 //
@@ -24,8 +24,12 @@
 // of the reference, not one of bf16(h)); its epilogue takes each lane's
 // (max, first argmax) of 32 logits from the accumulators and merges a
 // row's quad of lanes with two shuffles.  With f32 weights it stays in f32
-// on the CUDA cores.  (c1) moves ~2.4 MB.  The logits of a row never reach
-// device memory: (b1) leaves 2 numbers per (row, chunk).
+// on the CUDA cores.  (c1) moves ~2.3 MB (0.0007 ms at the memory's rate)
+// and is bound by latency: one round of loads (the exit flag tested after
+// it), one redux.sync reduction, the copy of h; it is launched with
+// programmatic dependent launch (decode_kernel.GREEDY_SELECT_PDL), so that it
+// is scheduled while (b1) runs.  The logits of a row never reach device
+// memory: (b1) leaves 2 numbers per (row, chunk).
 //
 // Semantics held to the reference: the merge keeps the greater value and,
 // on equal values, the lower index, which is the global first argmax of the
@@ -120,6 +124,7 @@ __global__ void __launch_bounds__(vocab::kThreads, 1) logits_top1_wgmma_kernel(
     const float* __restrict__ h, const __nv_bfloat16* __restrict__ fc_w,
     const float* __restrict__ fc_b, float* __restrict__ pv, int* __restrict__ pi,
     const int* __restrict__ live, int rows, int H, int Vp, int per_block) {
+  launch_dependents();  // (c1) may be scheduled now; it waits for this grid
   if (!step_runs(live)) return;
   vocab::product<S>(h, fc_w, rows, H, Vp, per_block,
                     Top1Epilogue{fc_b, pv, pi, rows, Vp / kChunk});
@@ -185,46 +190,104 @@ __global__ void __launch_bounds__(256) logits_top1_partial_kernel(
 }
 
 // ---------------------------------------------------------------- (c1)
-// One warp per row, 4 rows per block.  out is [rows, max_len]; column t is
-// written here, the columns after an exit keep the zeros they start with.
-// live[0] gates this step; live[1] is set while some row is not done.
-__global__ void __launch_bounds__(128) greedy_select_kernel(
+// A warp a row, `warps` warps a block (decode_kernel.greedy_select_warps).
+// out is [rows, max_len]; column t is written here, the columns after an
+// exit keep the zeros they start with.  live[0] gates this step; live[1] is set
+// while some row is not done.
+//
+// The row's C maxima and indices arrive in one round of 16-byte loads (a
+// scalar head and tail where the row's base is not 16-byte aligned:
+// row_split), with done[row]; each lane keeps its first maximum under
+// (key desc, index asc), and one first_max (redux.sync max of the keys,
+// then min of the indices at the maximum) gives the row's first argmax.  A
+// row not done copies h_new to h as float4 (4-byte words where H % 4 != 0
+// or a base is not 16-byte aligned); its first 128 float4 of h_new are
+// loaded in the first round, before done[row] is known.
+__global__ void __launch_bounds__(512) greedy_select_kernel(
     const float* __restrict__ pv, const int* __restrict__ pi,
     const float* __restrict__ h_new, float* __restrict__ h, int* __restrict__ tok,
     int* __restrict__ done, int* __restrict__ out, int* __restrict__ live, int rows,
     int n_chunks, int H, int max_len, int t, int end_id) {
-  if (!step_runs(live)) return;
+  wait_prior_grid();
+  const bool runs = step_runs(live);  // tested once the first round of loads is issued
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;  // uniform across the warp
 
-  float bv = -INFINITY;
-  int bi = INT_MAX;
-  for (int c = lane; c < n_chunks; c += 32) {
-    const size_t o = (size_t)row * n_chunks + c;
-    const float v = pv[o];
-    const int i = pi[o];
-    if (ahead(v, i, bv, bi)) {
-      bv = v;
-      bi = i;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, bv, o);
-    const int i2 = __shfl_xor_sync(0xffffffffu, bi, o);
-    if (ahead(v2, i2, bv, bi)) {
-      bv = v2;
-      bi = i2;
-    }
-  }
-  const int nxt = bi;
   const int was_done = done[row];
-  if (!was_done) {
-    const float* src = h_new + (size_t)row * H;
-    float* dst = h + (size_t)row * H;
-    for (int e = lane; e < H; e += 32) dst[e] = src[e];
+  // h_new's row is loaded before done[row] is known, so that every load is
+  // in the first round; a row that is done drops it
+  const bool vec =
+      (H & 3) == 0 &&
+      ((reinterpret_cast<uintptr_t>(h_new) | reinterpret_cast<uintptr_t>(h)) & 15) == 0;
+  const int H4 = vec ? H >> 2 : 0;
+  const float4* src4 = reinterpret_cast<const float4*>(h_new + (size_t)row * H);
+  float4* dst4 = reinterpret_cast<float4*>(h + (size_t)row * H);
+  float4 hx[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (lane + 32 * u < H4) hx[u] = src4[lane + 32 * u];
+  const float* rv = pv + (size_t)row * n_chunks;
+  const int* ri = pi + (size_t)row * n_chunks;
+  const RowSplit sp = row_split((size_t)row * n_chunks, n_chunks);
+  const float4* rv4 = reinterpret_cast<const float4*>(rv + sp.head);
+  const int4* ri4 = reinterpret_cast<const int4*>(ri + sp.head);
+  unsigned bk = kNoKey;
+  int bi = INT_MAX;
+  auto take = [&](float v, int i) {
+    const unsigned k = order_key(v);
+    const bool a = key_ahead(k, i, bk, bi);
+    bk = a ? k : bk;
+    bi = a ? i : bi;
+  };
+  float4 v[2];
+  int4 x[2];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int k = k0 + lane + 32 * u;
+      if (k < sp.body) {
+        v[u] = rv4[k];
+        x[u] = ri4[k];
+      }
+    }
+  };
+  auto take4 = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (k0 + lane + 32 * u < sp.body) {
+        take(v[u].x, x[u].x);
+        take(v[u].y, x[u].y);
+        take(v[u].z, x[u].z);
+        take(v[u].w, x[u].w);
+      }
+  };
+  load(0);
+  if (!runs) return;  // a closed gate: nothing is written
+  take4(0);
+  for (int k0 = 64; k0 < sp.body; k0 += 64) {
+    load(k0);
+    take4(k0);
   }
-  __syncwarp();  // every lane has read done[row] above
+  if (lane < sp.head) take(rv[lane], ri[lane]);
+  const int tl = sp.head + 4 * sp.body;
+  if (lane < sp.tail) take(rv[tl + lane], ri[tl + lane]);
+
+  unsigned kmax;
+  int nxt;
+  first_max(0xffffffffu, bk, bi, kmax, nxt);
+
+  if (!was_done) {
+    if (vec) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (lane + 32 * u < H4) dst4[lane + 32 * u] = hx[u];
+      for (int e = lane + 128; e < H4; e += 32) dst4[e] = src4[e];
+    } else {
+      for (int e = lane; e < H; e += 32) h[(size_t)row * H + e] = h_new[(size_t)row * H + e];
+    }
+  }
+  __syncwarp();  // every lane of the row has read done[row] above
   if (lane == 0) {
     const int now_done = was_done || nxt == end_id;
     out[(size_t)row * max_len + t] = was_done ? 0 : nxt;
@@ -267,14 +330,19 @@ int logits_top1_partial_bf16(const void* h, const void* fc_w, const void* fc_b, 
                               (cudaStream_t)stream);
 }
 
+// warps: warps a block (decode_kernel.greedy_select_warps); pdl: launch
+// with programmatic stream serialization (see wait_prior_grid)
 int greedy_select(const void* pv, const void* pi, const void* h_new, void* h, void* tok,
                   void* done, void* out, void* live, int rows, int n_chunks, int H,
-                  int max_len, int t, int end_id, void* stream) {
-  const dim3 grid((rows + 3) / 4);
-  greedy_select_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-      (const float*)pv, (const int*)pi, (const float*)h_new, (float*)h, (int*)tok,
-      (int*)done, (int*)out, (int*)live, rows, n_chunks, H, max_len, t, end_id);
-  return (int)cudaGetLastError();
+                  int max_len, int t, int end_id, int warps, int pdl, void* stream) {
+  if (rows < 1 || n_chunks < 1 || H < 1 || warps < 1 || warps > 16 ||
+      ((reinterpret_cast<uintptr_t>(pv) | reinterpret_cast<uintptr_t>(pi)) & 15))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = launch_maybe_pdl(
+      greedy_select_kernel, dim3((rows + warps - 1) / warps), dim3(warps * 32), 0,
+      (cudaStream_t)stream, pdl != 0, pv, pi, h_new, h, tok, done, out, live, rows, n_chunks,
+      H, max_len, t, end_id);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // extern "C"

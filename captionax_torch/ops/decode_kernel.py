@@ -22,11 +22,14 @@ per step (``csrc/beam_decode.cu``, ``csrc/greedy_decode.cu``):
   instance stays on the CUDA cores); :func:`vocab_items_per_block` spreads
   its 128-row tiles and 128-column chunks over the card's SMs;
 - :func:`beam_select`          (c) merge the partials, top-3 of each
-  image's 9 candidates, reorder by parent, retire completions;
+  image's 9 candidates, reorder by parent, retire completions; a warp per
+  beam row (:func:`select_images_per_block`), its loads in one round of
+  16-byte vectors (:func:`row_split`), the merges on warp reductions;
 - :func:`logits_top1_partial`  (b1) vocab product + per-chunk maximum and
   first argmax;
 - :func:`greedy_select`        (c1) merge the partials into each row's
-  first argmax, emit, retire rows on ``</s>``.
+  first argmax, emit, retire rows on ``</s>``; a warp a row, one round of
+  16-byte loads and one warp reduction.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain PyTorch version beside it (``*_plain``) for CPU tensors only.  The
@@ -82,6 +85,12 @@ CELL_MAX_H = 256         # the widest h of the bf16 cell (a lane keeps 8 depths 
 CELL_MAX_STYLES = 32     # the bf16 cell marks the styles present in a tile in one 32-bit word
 VOCAB_ROWS = 128         # rows per block of the bf16 (b) and (b1): two warpgroups
 VOCAB_MAX_H = 256        # the widest h whose three bf16 terms fit in shared memory
+SELECT_IMAGES = (4, 2, 1)  # images a block of (c) (three warps each), largest first
+GREEDY_SELECT_WARPS = (16, 8, 4, 2, 1)  # warps a block of (c1), largest first
+# programmatic dependent launch of (c1), which (b1) lets start early: it
+# shortened a greedy step by more than the spread between runs on the H100
+# (PERF.md); (c) launches plainly, where it did not
+GREEDY_SELECT_PDL = True
 
 CELL = KernelOp("cell_step")
 LOGITS = KernelOp("logits_top3_partial")
@@ -133,6 +142,38 @@ def vocab_items_per_block(rows: int, n_chunks: int, sms: int) -> int:
     reuses it for all its chunks of that tile."""
     items = -(-rows // VOCAB_ROWS) * n_chunks
     return max(1, -(-items // sms))
+
+
+def select_images_per_block(n_img: int, sms: int) -> int:
+    """Images a block of (c), which runs a warp per beam row: the most of
+    SELECT_IMAGES whose grid still has a block for every one of ``sms``
+    SMs, else one (the service's 64 images: 64 blocks of 96 threads)."""
+    for images in SELECT_IMAGES:
+        if -(-n_img // images) >= sms:
+            return images
+    return 1
+
+
+def greedy_select_warps(rows: int, sms: int) -> int:
+    """Warps a block of (c1), a warp a row: the most of
+    GREEDY_SELECT_WARPS whose grid still has a block for every four of
+    ``sms`` SMs, else one.  Fewer, larger blocks launch faster, but a
+    block's rows then share one SM: on the H100 16 warps a block beat 4 at
+    1024 rows and 1 to 8 tied at 64 rows, where 16 was slower (PERF.md)."""
+    for warps in GREEDY_SELECT_WARPS:
+        if 4 * -(-rows // warps) >= sms:
+            return warps
+    return 1
+
+
+def row_split(offset: int, n: int) -> Tuple[int, int, int]:
+    """How the select kernels load a row of ``n`` 4-byte partials that starts
+    at element ``offset`` of a 16-byte-aligned array: (head, body, tail) =
+    the scalars before the first 16-byte boundary, the 16-byte vectors, the
+    scalars after them (decode_common.cuh, ``row_split``)."""
+    head = min(n, -offset % 4)
+    body = (n - head) // 4
+    return head, body, n - head - 4 * body
 
 
 def gate_blocks(rows: int, H: int, tile: Tuple[int, int]) -> int:
@@ -560,7 +601,8 @@ def beam_select(pv, pi, pm, ps, h_new, state: Dict[str, torch.Tensor],
             _ptr(state["tok"]), _ptr(state["score"]), _ptr(state["hist_in"]),
             _ptr(state["hist_out"]), _ptr(state["best_seq"]), _ptr(state["best_val"]),
             _ptr(state["best_len"]), _ptr(state["found"]), _ptr(state["run"][t:]),
-            n_img, C, H, T, t, end_id, torch.cuda.current_stream(dev).cuda_stream,
+            n_img, C, H, T, t, end_id, select_images_per_block(n_img, _sms(dev)),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
 
 
@@ -648,7 +690,8 @@ def greedy_select(pv, pi, h_new, state: Dict[str, torch.Tensor], t: int,
             "greedy_select",
             _ptr(pv), _ptr(pi), _ptr(h_new), _ptr(state["h"]), _ptr(state["tok"]),
             _ptr(state["done"]), _ptr(state["out"]), _ptr(state["run"][t:]), rows, C, H,
-            max_len, t, end_id, torch.cuda.current_stream(dev).cuda_stream,
+            max_len, t, end_id, greedy_select_warps(rows, _sms(dev)), int(GREEDY_SELECT_PDL),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
 
 

@@ -11,7 +11,9 @@ each whole decode against their plain PyTorch versions and against the
 plain oracles that run every step (small shapes, then the full width of
 the hypernet attention-GRU model), holds the bf16 vocab products of K1 and
 K2 (tensor cores, h split into three bf16 terms) against their plain
-versions at the edges of their tiling and on ties, serves batches through
+versions at the edges of their tiling and on ties, holds the select
+kernels (a warp per row, merges on ``redux.sync``) against theirs at their
+edges (ties, +-0.0, -inf chunks, dead beams, ragged rows), serves batches through
 the port's beam and greedy servers, holds the cell step that K1 and K2
 share (bf16: its gate products on the tensor cores, [x | h] split into
 three bf16 terms) against its plain version at the edges of its tiling,
@@ -23,7 +25,8 @@ fits), holds K4 against its plain version at small shapes and at the full
 width of ResNet-152, serves uint8 images through the port's
 ``CaptionService`` (ResNet-152 on K4, then K1 or K2), and times each
 kernel (the cell step's two phases apart, K3's recurrence kernels by
-part), each train step and the image path.  One line per phase gives the phase's seconds.  The line before the last is a
+part, the select kernels beside the launch floor), each train step and the
+image path.  One line per phase gives the phase's seconds.  The line before the last is a
 JSON ``kernels`` record; the last line is ``{"ok": true, "device":
 {...}}``.  Any mismatch, a missing card or a failed build raises, and the
 script exits non-zero without that last line.
@@ -47,7 +50,7 @@ import torch.nn.functional as F
 
 from captionax_torch.core.vocab import SPECIAL_TOKENS, STYLE_TOKENS, Vocab
 from captionax_torch.data.transforms import preprocess_images
-from captionax_torch.decode.search import beam_search, greedy
+from captionax_torch.decode.search import NEG_INF, beam_search, greedy, top_k_first
 from captionax_torch.decode.serving import (
     MicroBatcher,
     fetch,
@@ -65,6 +68,7 @@ from captionax_torch.ops import _cuda
 from captionax_torch.ops import conv_kernel as ck
 from captionax_torch.ops import decode_kernel as dk
 from captionax_torch.ops import train_kernel as tk
+from captionax_torch.ops.probe import select_times as sel_probe
 from captionax_torch.train import steps as tsteps
 from captionax_torch.train.state import (
     create_train_state,
@@ -549,6 +553,192 @@ def vocab_edges() -> None:
                     f"ties ({kind}, rows {rows}, Vp {vp}): not the first occurrences")
             say(f"  ties ({kind} operands, rows {rows}, H 200, Vp {vp}, columns {cols} at one "
                 f"bias): first occurrences, indices equal to the plain version; {got}")
+
+
+# ------------------------------------------------------------------ 3c
+# The select kernels' edge shapes, (images, vocab chunks C, H, T): images
+# not a multiple of the images a block; C % 4 != 0, so that rows of
+# partials start off a 16-byte boundary (a scalar head and tail); H % 4 != 0
+# (h copied as words); C > 256 (pm and ps read past a lane's first round);
+# and the decode's own C = 76, H = 200, T = 51 (last).  Greedy takes 3 rows
+# an image of these, not a multiple of its 4 or 8 rows a block.
+SELECT_EDGE = ((5, 76, 200, 51), (7, 3, 36, 9), (9, 5, 37, 12), (3, 77, 30, 51), (1, 1, 4, 4),
+               (2, 301, 40, 9), (64, 76, 200, 51))
+SELECT_CASES = ("random", "ties", "zeros", "neginf", "dead", "last wins")
+
+
+def edge_logits(rows: int, C: int, case: str, g) -> torch.Tensor:
+    """Logits [rows, C * 128] of one edge case: "ties" holds few distinct
+    values (equal values across chunks and across a warp's lanes); "zeros"
+    has its largest values +0.0 and -0.0, one value to the reference."""
+    n = C * dk.CHUNK
+    x = torch.randn((rows, n), generator=g)
+    if case == "ties":
+        x = torch.round(x * 2) / 2
+    elif case == "zeros":
+        x = -x.abs() - 0.5
+        pos = torch.randint(0, n, (rows, 6), generator=g)
+        x.scatter_(1, pos[:, :3], 0.0)
+        x.scatter_(1, pos[:, 3:], -0.0)
+    return x
+
+
+def edge_partials(x: torch.Tensor, top: int, neginf: bool, g):
+    """The partials (b) or (b1) leaves for logits x, as their plain versions
+    compute them; with ``neginf`` about a third of the chunks hold -inf
+    (indices the chunk's first columns; max -inf, sum of exp 1), never all
+    of a row's."""
+    rows, n = x.shape
+    C = n // dk.CHUNK
+    xc = x.reshape(rows * C, dk.CHUNK)
+    v, i = top_k_first(xc, top)
+    v = v.reshape(rows, C, top)
+    idx = (i.reshape(rows, C, top) + (torch.arange(C) * dk.CHUNK)[None, :, None]).int()
+    m = xc.max(dim=1).values.reshape(rows, C)
+    s = torch.exp(xc - m.reshape(-1, 1)).sum(dim=1).reshape(rows, C)
+    if neginf and C > 1:
+        dead = torch.rand((rows, C), generator=g) < 1 / 3
+        dead[:, torch.randint(0, C, (1,), generator=g)] = False
+        v[dead] = -torch.inf
+        idx[dead] = ((torch.arange(C) * dk.CHUNK)[None, :, None]
+                     + torch.arange(top)[None, None, :]).int().expand(rows, C, top)[dead]
+        m[dead] = -torch.inf
+        s[dead] = 1.0
+    if top == 1:
+        return v[:, :, 0].contiguous(), idx[:, :, 0].contiguous()
+    return v, idx, m, s
+
+
+def edge_beam_inputs(n_img: int, C: int, hd: int, T: int, case: str, g, device=None):
+    """(partials, h_new, state, t) of one beam edge case, on ``device`` (the
+    card by default)."""
+    rows = n_img * dk.K
+    x = edge_logits(rows, C, case, g)
+    score = torch.randn((rows,), generator=g) * 2
+    best_val = torch.where(torch.rand((n_img,), generator=g) < 0.5,
+                           torch.full((n_img,), NEG_INF), torch.randn((n_img,), generator=g) * 3)
+    if case == "ties":  # even images: beam 1 a copy of beam 0, equal scores
+        for i in range(0, n_img, 2):
+            x[3 * i + 1] = x[3 * i]
+            score[3 * i + 1] = score[3 * i]
+            x[3 * i, END] = x[3 * i].max() + 1  # both end: a tie between two completions
+            x[3 * i + 1, END] = x[3 * i, END]
+    if case == "dead":  # per image: all live, beam 0 alone (as at t=0), one live, none
+        pattern = torch.tensor([[1, 1, 1], [1, 0, 0], [0, 1, 0], [0, 0, 0]])
+        live = pattern[torch.arange(n_img) % 4].reshape(-1).bool()
+        score = torch.where(live, score, torch.full_like(score, NEG_INF))
+    if case == "last wins":  # beam 0's top-3 ends with </s>: the third candidate completes
+        x[0::3] = x[0::3].clamp(max=2.0)
+        x[0::3, 5], x[0::3, 9], x[0::3, END] = 5.0, 4.0, 3.0
+        score[1::3] = score[2::3] = NEG_INF
+        best_val.fill_(NEG_INF)
+    parts = edge_partials(x, 3, case == "neginf", g)
+    t = int(torch.randint(0, T - 1, (1,), generator=g))
+    run = torch.zeros((T,), dtype=torch.int32)
+    run[t] = 1
+    state = {
+        "h": torch.randn((rows, hd), generator=g),
+        "tok": torch.randint(0, C * dk.CHUNK, (rows,), generator=g, dtype=torch.int32),
+        "score": score,
+        "hist_in": torch.randint(0, 50, (rows, T), generator=g, dtype=torch.int32),
+        "hist_out": torch.randint(0, 50, (rows, T), generator=g, dtype=torch.int32),
+        "best_seq": torch.randint(0, 50, (n_img, T), generator=g, dtype=torch.int32),
+        "best_val": best_val,
+        "best_len": torch.randint(0, T, (n_img,), generator=g, dtype=torch.int32),
+        "found": torch.randint(0, 2, (n_img,), generator=g, dtype=torch.int32),
+        "run": run,
+    }
+    h_new = torch.randn((rows, hd), generator=g)
+    dev = device or DEVICE
+    return ([p.to(dev) for p in parts], h_new.to(dev), {k: v.to(dev) for k, v in state.items()},
+            t)
+
+
+def edge_greedy_inputs(rows: int, C: int, hd: int, max_len: int, case: str, g, device=None):
+    """(partials, h_new, state, t) of one greedy edge case, on ``device`` (the
+    card by default); a third of the rows have </s> as their first argmax, a
+    third are done already."""
+    x = edge_logits(rows, C, case, g)
+    x[0::3, END] = x[0::3].max(dim=1).values + (0.0 if case == "ties" else 1.0)
+    parts = edge_partials(x, 1, case == "neginf", g)
+    t = int(torch.randint(0, max_len, (1,), generator=g))
+    run = torch.zeros((max_len + 1,), dtype=torch.int32)
+    run[t] = 1
+    state = {
+        "h": torch.randn((rows, hd), generator=g),
+        "tok": torch.randint(0, C * dk.CHUNK, (rows,), generator=g, dtype=torch.int32),
+        "done": (torch.rand((rows,), generator=g) < 1 / 3).int(),
+        "out": torch.randint(0, 50, (rows, max_len), generator=g, dtype=torch.int32),
+        "run": run,
+    }
+    h_new = torch.randn((rows, hd), generator=g)
+    dev = device or DEVICE
+    return ([p.to(dev) for p in parts], h_new.to(dev), {k: v.to(dev) for k, v in state.items()},
+            t)
+
+
+@contextlib.contextmanager
+def forced_select(images=None, warps=None, pdl=None):
+    """Within: (c) takes ``images`` images a block, (c1) ``warps`` warps a
+    block and programmatic dependent launch as ``pdl`` says, in place of
+    ``select_images_per_block``, ``greedy_select_warps`` and
+    GREEDY_SELECT_PDL (None: the choice stays)."""
+    chosen = dk.select_images_per_block, dk.greedy_select_warps, dk.GREEDY_SELECT_PDL
+    if images is not None:
+        dk.select_images_per_block = lambda n_img, sms: images
+    if warps is not None:
+        dk.greedy_select_warps = lambda rows, sms: warps
+    if pdl is not None:
+        dk.GREEDY_SELECT_PDL = pdl
+    try:
+        yield
+    finally:
+        dk.select_images_per_block, dk.greedy_select_warps, dk.GREEDY_SELECT_PDL = chosen
+
+
+def select_edges() -> None:
+    """(c) and (c1) against their plain versions at every edge shape and
+    case, at every images-per-block of (c) and every warps-per-block of
+    (c1), with and without its programmatic dependent launch: ints equal,
+    floats within SMALL_SCORE_TOL; a closed gate leaves the state as it
+    was."""
+    g = gen(123)
+    n = 0
+    for (n_img, C, hd, T), case in ((s, c) for s in SELECT_EDGE for c in SELECT_CASES):
+        parts, h_new, state, t = edge_beam_inputs(n_img, C, hd, T, case, g)
+        ref = clone_state(state)
+        dk.beam_select_plain(*parts, h_new, ref, t, END)
+        for images in dk.SELECT_IMAGES:
+            got = clone_state(state)
+            with forced_select(images=images):
+                dk.beam_select(*parts, h_new, got, t, END)
+            compare_states(ref, got, f"(c) {case}, images {n_img}, C {C}, H {hd}, T {T}, "
+                                     f"{images} a block")
+            n += 1
+        rows = n_img * dk.K
+        gparts, gh, gstate, gt = edge_greedy_inputs(rows, C, hd, MAX_LEN, case, g)
+        gref = clone_state(gstate)
+        dk.greedy_select_plain(*gparts, gh, gref, gt, END)
+        for warps, pdl in ((w, p) for w in dk.GREEDY_SELECT_WARPS for p in (False, True)):
+            got = clone_state(gstate)
+            with forced_select(warps=warps, pdl=pdl):
+                dk.greedy_select(*gparts, gh, got, gt, END)
+            for k in gref:
+                require(torch.equal(gref[k], got[k]), f"(c1) {case}, rows {rows}, C {C}, H {hd}: "
+                        f"{k} differs at {warps} warps a block, pdl {pdl}")
+            n += 1
+        if case == "random":  # a closed gate: nothing changes
+            for st, call in ((state, lambda s_: dk.beam_select(*parts, h_new, s_, t, END)),
+                             (gstate, lambda s_: dk.greedy_select(*gparts, gh, s_, gt, END))):
+                got = clone_state(st)
+                got["run"].zero_()
+                before = clone_state(got)
+                call(got)
+                compare_states(before, got, f"closed gate, images {n_img}, C {C}")
+    torch.cuda.synchronize()
+    say(f"  {n} select launches at {len(SELECT_EDGE)} shapes (images, C, H, T) {SELECT_EDGE} x "
+        f"cases {SELECT_CASES}: every state equal to the plain version's (ints exactly, floats "
+        f"within {SMALL_SCORE_TOL}); a closed gate changes nothing")
 
 
 # ------------------------------------------------------------------ 4, 5
@@ -1234,13 +1424,22 @@ def greedy_times(model, theta, batches, paths):
     select = lambda: dk.greedy_select(*pp, hp, scratch, t, END)
     scratch_plain = clone_state(base)
     select_plain = lambda: dk.greedy_select_plain(*pp, hp, scratch_plain, t, END)
-    out.append(kernel_entry(
-        "greedy_select", dk.GREEDY_SELECT, "greedy", GREEDY_SOURCE, GREEDY_TPU, select,
-        select_plain, None, sel_bytes, 0, (sk["h"] - sp["h"]).abs().max().item(), wdt, paths,
-        per_batch))
+    with forced_select(pdl=False):  # timed as launched alone, as timed_alone
+        out.append(kernel_entry(
+            "greedy_select", dk.GREEDY_SELECT, "greedy", GREEDY_SOURCE, GREEDY_TPU, select,
+            select_plain, None, sel_bytes, 0, (sk["h"] - sp["h"]).abs().max().item(), wdt,
+            paths, per_batch))
     say(f"  (c1) full width: state equal to the plain version; {live}/{rows} rows live "
         f"after step {t}")
     return out
+
+
+def timed_alone(select) -> float:
+    """A select kernel's device time, launched as the other kernels are
+    (programmatic dependent launch, which hides part of the launch between
+    two selects, is timed apart by ``select_times``)."""
+    with forced_select(pdl=False):
+        return device_ms(select, 50)
 
 
 def service_step_times(model, batches) -> None:
@@ -1285,7 +1484,7 @@ def service_step_times(model, batches) -> None:
         times = (
             device_ms(lambda: cell(feats, att1, state["h"], state["tok"], styles, t, w), 50),
             device_ms(lambda: logits(hk, w["fc_w"], w["fc_b"]), 50),
-            device_ms(lambda: select(*parts, hk, scratch, t, END), 50),
+            timed_alone(lambda: select(*parts, hk, scratch, t, END)),
         )
         cell_b, cell_f = cell_cost(feats, att1, state["h"], state["tok"], styles, w, hk)
         sk = clone_state(state)
@@ -1310,6 +1509,53 @@ def service_step_times(model, batches) -> None:
         cell_phases_line(f"cell_step ({kind} rows, the service's batch)",
                          lambda: cell(feats, att1, state["h"], state["tok"], styles, t, w), rows,
                          br)
+
+
+def select_times(model) -> dict:
+    """K1c and K2c (bf16 decoder at +MID_BIAS, one theta) at step 1 of a
+    decode of B and ENC_B images, the exit flags open, through
+    ``select_times.measure``: the kernel at the served launch shape and at
+    the others, launched as the other kernels are; (c1) with programmatic
+    dependent launch (PDL); a whole step ((a), (b), (c) or (c1)) and the
+    host time of one select call (for (c1) without and with PDL, in turns);
+    and the launch floor (an empty kernel, back to back) at the select
+    kernels' grids.  -> {"floor": {grid: ms}, (kind, B): record}."""
+    lib = sel_probe.floor_library()
+    out = {"floor": {f"{b}x{th}": sel_probe.launch_floor_ms(lib, b, th)
+                     for b, th in sel_probe.FLOOR_GRIDS}}
+    d = mid_copy(model["decoder"])
+    for kind in ("beam", "greedy"):
+        for n in (B, ENC_B):
+            out[(kind, n)] = sel_probe.measure(kind, d, n)
+    say_select_times(out, (B, ENC_B))
+    return out
+
+
+def say_select_times(sel: dict, sizes) -> None:
+    """The lines of ``select_times``' record at each of ``sizes`` images."""
+    sms = dk._sms(torch.device(DEVICE))
+    ms = lambda xs: "/".join(f"{x:.4f}" for x in xs)
+    say("  launch floor (an empty kernel back to back, blocks x threads): "
+        + ", ".join(f"{g} {t:.4f} ms" for g, t in sel["floor"].items()) + f" [{CARD}]")
+    for kind in ("beam", "greedy"):
+        for n in sizes:
+            rec = sel[(kind, n)]
+            if kind == "beam":
+                served = f"{dk.select_images_per_block(n, sms)} images a block"
+                pdl = (f"; a beam step {ms(rec['step_ms'])} ms; the host's time of a select "
+                       f"call {ms(rec['host_ms'])} ms")
+            else:
+                served = f"{dk.greedy_select_warps(n, sms)} warps a block"
+                pdl = (f"; with PDL {ms(rec['select_pdl_ms'])} ms back to back; a greedy step "
+                       f"{ms(rec['step_ms'])} ms, with PDL {ms(rec['step_pdl_ms'])}; the host's "
+                       f"time of a select call {ms(rec['host_ms'])} ms, with PDL "
+                       f"{ms(rec['host_pdl_ms'])} (served: PDL "
+                       f"{'on' if dk.GREEDY_SELECT_PDL else 'off'})")
+            say(f"  {'beam_select' if kind == 'beam' else 'greedy_select'} at B={n} "
+                f"({n * (dk.K if kind == 'beam' else 1)} rows): {ms(rec['select_ms'])} ms at "
+                f"the served {served}; "
+                + ", ".join(f"{k} {ms(v)}" for k, v in rec["variants"].items())
+                + pdl + f" [{CARD}]")
 
 
 def bare_launch_ms(op, call) -> float:
@@ -1873,6 +2119,10 @@ def train_times(model, batch, launches, errs):
         lib_wgrad = lambda: (torch.matmul(x1.t(), rows["dgi"]), torch.matmul(hp1.t(), dgh),
                              torch.matmul(hp1.t(), rows["datt2"]))
         lib_reduce = lambda: (torch.sum(partial, dim=0), torch.sum(dva_part, dim=0))
+        # the same sum of w_t dctx_t over t, as one batched product in another
+        # order (and, in bf16, without the fold's rounding at every step)
+        w_fold = fold_ops[0].transpose(1, 2).to(cdt)
+        lib_fold = lambda: torch.bmm(w_fold, fold_ops[1])
         total = partial.shape[1]
         specs = [
             ("train_fwd", tk.FWD, K3_FWD_TPU, lambda: tk.fused_fwd(*args),
@@ -1881,7 +2131,7 @@ def train_times(model, batch, launches, errs):
              lambda: tk.bwd_recurrence_parts(*args, hs, g),
              lambda: tk.bwd_recurrence_plain(*args, hs, g), None, bb, bf, cdt),
             ("train_feats_fold", tk.FOLD, K3_BWD_TPU, lambda: tk.feats_fold(*fold_ops),
-             lambda: tk.feats_fold_plain(*fold_ops), None, ob, of, cdt),
+             lambda: tk.feats_fold_plain(*fold_ops), lib_fold, ob, of, cdt),
             ("train_wgrad_partial", tk.WGRAD, K3_BWD_TPU, lambda: tk.wgrad_partial(rows),
              lambda: tk.wgrad_partial_plain(rows), lib_wgrad,
              nbytes(*rows.values(), partial),
@@ -2350,6 +2600,8 @@ def main() -> int:
         small_greedy_exactness()
     with Phase("3b the bf16 vocab products at their edges and ties"):
         vocab_edges()
+    with Phase("3c the select kernels at their edges"):
+        select_edges()
     paths = {"beam": {}, "greedy": {}}
     with Phase("4 full width, beam main path"):
         model, theta, batches = full_model()
@@ -2373,6 +2625,14 @@ def main() -> int:
         kernels = beam_times(model, theta, batches, paths)
         kernels += greedy_times(model, theta, batches, paths)
         service_step_times(model, batches)
+        sel = select_times(model)
+        for k in kernels:
+            kind = {"beam_select": "beam", "greedy_select": "greedy"}.get(k["name"])
+            if kind:
+                k["ms_b64"] = sel[(kind, ENC_B)]["select_ms"][0]
+                k["launch_floor_ms"] = min(sel["floor"].values())
+                if kind == "greedy":
+                    k["ms_pdl"] = sel[(kind, B)]["select_pdl_ms"][0]
         skipped_step_cost(model, theta, batches)
         decode_host_time(model, theta, batches)
         served_rates(model, theta, batches)
@@ -2400,6 +2660,8 @@ def main() -> int:
         with Phase("19 times, images in"):
             kernels += k4_times(enc, encoders, x, ins, errs, served, images, rows)
             k4_width_sweep(encoders, ins)
+            say("  the service's decode, K1c and K2c at B=64 (phase 11's readings):")
+            say_select_times(sel, (ENC_B,))
     finally:
         for svc, _, _ in served.values():
             svc.close()
