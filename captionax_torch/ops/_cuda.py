@@ -52,8 +52,8 @@ SIGNATURES = {
     "train_fwd_bf16": [_P] * 11 + [_I] * 8 + [_P],
     "train_bwd_recurrence_f32": [_P] * 25 + [_I] * 8 + [_P],
     "train_bwd_recurrence_bf16": [_P] * 25 + [_I] * 8 + [_P],
-    "train_feats_fold_f32": [_P] * 3 + [_I] * 4 + [_P],
-    "train_feats_fold_bf16": [_P] * 3 + [_I] * 4 + [_P],
+    "train_feats_fold_f32": [_P] * 3 + [_I] * 10 + [_P],
+    "train_feats_fold_bf16": [_P] * 3 + [_I] * 10 + [_P],
     "train_wgrad_partial": [_P] * 6 + [_I] * 4 + [_P],
     "train_wgrad_reduce": [_P] * 2 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_P],
     "conv_stage_f32": [_P] * 16 + [_I] * 7 + [_P, _P],
@@ -67,6 +67,8 @@ SIGNATURES = {
     "train_recurrence_smem": [_I] * 7,
     # the clusters of a recurrence kernel the card runs at once
     "train_recurrence_clusters": [_I] * 7,
+    # the blocks of a fold instance an SM runs at once
+    "train_feats_fold_resident": [_I] * 4,
 }
 
 

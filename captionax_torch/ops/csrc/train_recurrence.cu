@@ -28,7 +28,13 @@
 //                         d <- rnd(d + rnd(rnd(w_t) dctx_t)): the order and
 //                         roundings of the JAX kernel's per-step sum, once
 //                         per element instead of a read-modify-write of
-//                         [B, R, F] at every step.
+//                         [B, R, F] at every step.  Bound by bytes (65.6 MB
+//                         in f32 at B=1024, T=25), then by its separate mul
+//                         and add; each item (an image's slice of regions)
+//                         is copied to shared memory once, while the item
+//                         before folds, where the first design read w_t
+//                         and dctx_t from L1/L2 at every step for every
+//                         region and feature (~1.25 GB; at "the fold").
 //   train_wgrad_partial   the weight gradients as products over all T*B
 //                         rows, [X|1]^T dGI, [Hprev|1]^T [dGI_rz|dGH_n] and
 //                         [Hprev|1]^T dATT2 (the ones column gives the bias
@@ -1105,55 +1111,196 @@ __global__ void __launch_bounds__(kThreads, 1) train_bwd_recurrence_kernel(const
   s.cl.sync();
 }
 
+// ---------------------------------------------------------------- the fold
 // d_feats[b, rho, f] = the fold over t = T-1 .. 0 of d <- rnd(d + rnd(rnd(w)
-// dctx)): V features of one (row, region) a thread, each product and sum
-// rounded on its own (no fused multiply-add), as the plain version takes
-// them.  bf16 takes them as bf16x2 operations: a product of two bf16 values
-// is exact in f32 and a sum of two rounds the same once as through f32, so
-// they give the roundings of the f32 arithmetic, one instruction for two.
-template <typename W>
-__global__ void __launch_bounds__(256) train_feats_fold_kernel(const float* __restrict__ w_t,
-                                                               const W* __restrict__ dctx_t,
-                                                               W* __restrict__ d_feats, int B,
-                                                               int T, int R, int F) {
-  constexpr int V = Vec<W>::N;
-  const int fv = F / V;
-  const long e = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long)B * R * fv) return;
-  const int ch = (int)(e % fv);
-  const long br = e / fv;
-  const int rho = (int)(br % R), b = (int)(br / R);
-  const float* wp = w_t + (size_t)b * T * R + rho;
-  const W* dp = dctx_t + (size_t)b * T * F + ch * V;
-  W* out = d_feats + ((size_t)b * R + rho) * F + ch * V;
-  if constexpr (std::is_same<W, __nv_bfloat16>::value) {
-    unsigned d[4] = {0u, 0u, 0u, 0u};  // bf16x2
-    for (int t = T - 1; t >= 0; --t) {
-      const unsigned w2 = Vec<__nv_bfloat16>::pair(__ldg(wp + (size_t)t * R),
-                                                    __ldg(wp + (size_t)t * R));
-      const uint4 x = __ldg(reinterpret_cast<const uint4*>(dp + (size_t)t * F));
-      const unsigned dc[4] = {x.x, x.y, x.z, x.w};
+// dctx)), each product and sum rounded on its own (no fused multiply-add), as
+// the plain version takes them.  bf16 takes them as bf16x2 operations: a
+// product of two bf16 values is exact in f32 and a sum of two rounds the same
+// once as through f32, so they give the roundings of the f32 arithmetic, one
+// instruction for two.  The order and the roundings leave no room for the
+// tensor cores: this is a CUDA-core kernel.
+//
+// What bounds it: bytes, then its separate mul and add.  It reads w_t
+// [B, T, R] (f32) and dctx_t [B, T, F] once and writes d_feats [B, R, F]:
+// 65.6 MB in f32 at B=1024, T=25, R=49, F=200 (35.3 MB in bf16), 0.0196 ms
+// (0.0105) at 3.35 TB/s.  Its 0.50 G f32 lane instructions (0.25 G bf16x2)
+// take ~0.017 ms (~0.009) at the CUDA cores' issue rate, so loads, stores
+// and arithmetic must overlap.  Measured on the H100 (PERF.md, the skip
+// bits): the arithmetic alone takes ~0.027 ms in f32 (~0.016 bf16), the
+// loads and stores alone ~0.026 (~0.013), and they overlap in part.  The
+// first design (a thread per (image,
+// region, 16 bytes of features), each step's w and dctx read from device
+// memory) read every dctx row once per region and every w once per 16 bytes
+// of features: ~1.25 GB through L1 and L2 for 65.6 MB of DRAM traffic; in a
+// copy of it (ops/probe/fold_probe.cu) the loads alone took 99% of the time.
+//
+// This design reads each operand from device memory once, into shared
+// memory.  An item is one image b, `nr` of its regions and `fc` 16-byte
+// chunks of its features (train_kernel.fold_plan: a whole image once the
+// batch fills the card, else the items of one wave; the plan's numbers are
+// arguments); a block takes items blockIdx.x, + gridDim.x, ... through two
+// buffers, copying the next item while it folds this one.  An item's
+// dctx_t[b, :, chunks] comes by 16-byte cp.async (F * elt is a multiple of
+// 16, so every row is aligned), its w_t[b, :, regions] by 4-byte cp.async
+// (w_t[b] starts at b T R floats: off 16 bytes wherever T R is odd) into
+// each region set's 16-byte-aligned slots.  A thread holds 16 bytes of
+// features (4 f32, 8 bf16) of P consecutive regions in registers, S sets of
+// regions by fc chunks a block; a step is one 16-byte shared load of dctx
+// and ceil(P / 4) of w (bf16: turned into bf16x2 pairs once, in place, by
+// the thread that copied them), then P x 4 products and sums.  Its stores
+// are 16 bytes, neighbouring threads on neighbouring chunks.
+constexpr int kFoldRegions = 8;    // regions a thread at most (P)
+// threads a block at most (S * fc: 7 x 50 at full width in f32), and two such
+// blocks an SM: at most 80 registers a thread (65536 / 768, in steps of 8)
+constexpr int kFoldThreads = 384;
+// `skip` bits, to time the parts (the output is then not the function): the
+// arithmetic (the stores write zeros), the copies from device memory, the
+// stores
+constexpr int kFoldSkipArith = 1, kFoldSkipStage = 2, kFoldSkipStore = 4;
+
+// The fold's launch (train_kernel.fold_plan) and the sizes it gives: a
+// __grid_constant__ parameter, read in place (no copy to registers or local
+// memory).
+struct FoldArgs {
+  const float* w_t;
+  const void* dctx_t;
+  void* d_feats;
+  int T, R, F;
+  int nr, fc, S;             // regions and 16-byte chunks an item, region sets a block
+  int nv, nrb, nfb, items;   // chunks a row; region and feature blocks an image; items
+  int skip;
+};
+
+// Item i: image i / (nrb nfb), region block (i / nfb) % nrb, feature block
+// i % nfb; its first region and chunk, and how many it holds.
+struct FoldItem {
+  int b, r0, nrl, c0, fcl;
+  __device__ FoldItem(int i, const FoldArgs& a) {
+    const int fb = i % a.nfb, rb = (i / a.nfb) % a.nrb;
+    b = i / (a.nfb * a.nrb);
+    r0 = rb * a.nr, nrl = min(a.nr, a.R - r0), c0 = fb * a.fc, fcl = min(a.fc, a.nv - c0);
+  }
+};
+
+// f(t, c) for e = tid, tid + nth, ... < T n with (t, c) = (e / n, e % n),
+// stepped without a division an element
+template <typename Fn>
+__device__ __forceinline__ void for_each_tc(int T, int n, int tid, int nth, Fn f) {
+  if (n <= 0) return;
+  int t = tid / n, c = tid - t * n;
+  const int dt = nth / n, dc = nth - dt * n;
+  while (t < T) {
+    f(t, c);
+    t += dt, c += dc;
+    if (c >= n) c -= n, ++t;
+  }
+}
+
+template <typename W, int P>
+__global__ void __launch_bounds__(kFoldThreads, 2)
+    train_feats_fold_kernel(const __grid_constant__ FoldArgs a) {
+  constexpr int V = Vec<W>::N, P4 = (P + 3) / 4;  // P4: float4s of a thread's w slots
+  constexpr bool kBf16 = std::is_same<W, __nv_bfloat16>::value;
+  extern __shared__ float4 fold_smem[];
+  const int T = a.T, fc = a.fc, nw4 = a.S * P4, buf = T * (fc + nw4);  // float4s of a buffer
+  const int tid = threadIdx.x, nth = blockDim.x;
+  // Item i into buffer k: dctx [T][fc] chunks, then w [T][S][4 P4] (the
+  // slots of set s at s 4 P4: 16-byte rows), as one group of copies (none
+  // past the last item).  The w slots of no region keep what they held: the
+  // accumulators that read them are not stored.
+  auto stage = [&](int i, int k) {
+    if (i < a.items && !(a.skip & kFoldSkipStage)) {
+      float4* ds = fold_smem + k * buf;
+      float* ws = reinterpret_cast<float*>(ds + T * fc);
+      const FoldItem it(i, a);
+      const W* dsrc = static_cast<const W*>(a.dctx_t) + (size_t)it.b * T * a.F + (size_t)it.c0 * V;
+      for_each_tc(T, it.fcl, tid, nth, [&](int t, int c) {
+        hopper::cp_async16(hopper::smem_addr(ds + t * fc + c), dsrc + (size_t)t * a.F + c * V,
+                           true);
+      });
+      const float* wsrc = a.w_t + (size_t)it.b * T * a.R + it.r0;
+      for_each_tc(T, it.nrl, tid, nth, [&](int t, int r) {
+        cp_async4(hopper::smem_addr(ws + (t * nw4 + r / P * P4) * 4 + r % P),
+                  wsrc + (size_t)t * a.R + r);
+      });
+    }
+    hopper::cp_async_commit();
+  };
+  const int s = tid / fc, c = tid - s * fc;
+  using Acc = typename std::conditional<kBf16, unsigned, float>::type;
+  stage(blockIdx.x, 0);
+  for (int i = blockIdx.x, k = 0; i < a.items; i += gridDim.x, k ^= 1) {
+    stage(i + gridDim.x, k ^ 1);  // the next item's copies fly while this one folds
+    const FoldItem it(i, a);
+    const float4* ds = fold_smem + k * buf;
+    float4* ws = fold_smem + k * buf + T * fc;
+    hopper::cp_async_wait<1>();  // this thread's copies of item i
+    if constexpr (kBf16)  // the w it copied, as bf16x2 pairs of rnd(w)
+      if (!(a.skip & kFoldSkipStage))
+        for_each_tc(T, it.nrl, tid, nth, [&](int t, int r) {
+          float* slot = reinterpret_cast<float*>(ws + t * nw4 + r / P * P4) + r % P;
+          *reinterpret_cast<unsigned*>(slot) = Vec<__nv_bfloat16>::pair(*slot, *slot);
+        });
+    __syncthreads();
+    Acc acc[P][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        unsigned p;  // .rn on each: no contraction into a fused multiply-add
-        asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(p) : "r"(w2), "r"(dc[i]));
-        asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d[i]) : "r"(d[i]), "r"(p));
+    for (int q = 0; q < P; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[q][j] = 0;
+    const bool live = c < it.fcl;
+    if (live && !(a.skip & kFoldSkipArith)) {
+      const float4* wr = ws + s * P4;
+      // a step: 1 + ceil(P / 4) 16-byte shared loads, then P x 4 products and
+      // sums (.rn on each: no contraction into a fused multiply-add)
+#pragma unroll 2
+      for (int t = T - 1; t >= 0; --t) {
+        float wv[4 * P4];
+#pragma unroll
+        for (int u = 0; u < P4; ++u) {
+          const float4 w4 = wr[t * nw4 + u];
+          wv[4 * u] = w4.x, wv[4 * u + 1] = w4.y, wv[4 * u + 2] = w4.z, wv[4 * u + 3] = w4.w;
+        }
+        const float4 x = ds[t * fc + c];
+        if constexpr (kBf16) {
+          const unsigned xv[4] = {__float_as_uint(x.x), __float_as_uint(x.y),
+                                  __float_as_uint(x.z), __float_as_uint(x.w)};
+#pragma unroll
+          for (int q = 0; q < P; ++q) {
+            const unsigned w2 = __float_as_uint(wv[q]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              unsigned p;
+              asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(p) : "r"(w2), "r"(xv[j]));
+              asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(acc[q][j]) : "r"(acc[q][j]), "r"(p));
+            }
+          }
+        } else {
+          const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int q = 0; q < P; ++q)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[q][j] = __fadd_rn(acc[q][j], __fmul_rn(wv[q], xv[j]));
+        }
       }
     }
-    *reinterpret_cast<uint4*>(out) = make_uint4(d[0], d[1], d[2], d[3]);
-  } else {
-    float d[V];
+    if (live && !(a.skip & kFoldSkipStore))
 #pragma unroll
-    for (int i = 0; i < V; ++i) d[i] = 0.f;
-    for (int t = T - 1; t >= 0; --t) {
-      const float wv = __ldg(wp + (size_t)t * R);
-      float v[V];
-      Vec<W>::ldg(dp + (size_t)t * F, v);
-#pragma unroll
-      for (int i = 0; i < V; ++i) d[i] = __fadd_rn(d[i], __fmul_rn(wv, v[i]));
-    }
-    Vec<W>::st(out, d);
+      for (int q = 0; q < P; ++q) {
+        const int rl = s * P + q;
+        if (rl < it.nrl) {
+          W* out = static_cast<W*>(a.d_feats) + ((size_t)it.b * a.R + it.r0 + rl) * a.F +
+                   (size_t)(it.c0 + c) * V;
+          if constexpr (kBf16)
+            *reinterpret_cast<uint4*>(out) =
+                make_uint4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+          else
+            *reinterpret_cast<float4*>(out) =
+                make_float4(acc[q][0], acc[q][1], acc[q][2], acc[q][3]);
+        }
+      }
+    __syncthreads();  // buffer k is read: the item after next may be staged into it
   }
+  hopper::cp_async_wait<0>();
 }
 
 // The launch configuration of a recurrence kernel: `clusters` clusters of C
@@ -1257,15 +1404,70 @@ Args<W> bwd_args(const void* const* p, void* const* o, int B, int T, int R, int 
   return a;
 }
 
+using FoldKernel = void (*)(FoldArgs);
+
+// The fold's instance for P regions a thread, allowed `smem` bytes of dynamic
+// shared memory; nullptr and the error where that fails.
 template <typename W>
-int fold(const void* w_t, const void* dctx_t, void* d_feats, int B, int T, int R, int F,
-         cudaStream_t stream) {
+FoldKernel fold_kernel(int P, int smem, cudaError_t& err) {
+  FoldKernel kernel = nullptr;
+  switch (P) {
+#define FOLD_CASE(p) \
+  case p: kernel = train_feats_fold_kernel<W, p>; break;
+    FOLD_CASE(1) FOLD_CASE(2) FOLD_CASE(3) FOLD_CASE(4)
+    FOLD_CASE(5) FOLD_CASE(6) FOLD_CASE(7) FOLD_CASE(8)
+#undef FOLD_CASE
+    default: err = cudaErrorInvalidValue; return nullptr;
+  }
+  err = smem > 48 * 1024
+            ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+            : cudaSuccess;
+  return err == cudaSuccess ? kernel : nullptr;
+}
+
+// The bytes of shared memory of a fold block: two buffers, each T chunks of
+// dctx and T rows of S sets of P w slots (each set's rounded up to 16 bytes).
+inline long fold_bytes(int T, int fc, int S, int P) {
+  return 2L * T * (fc + S * ((P + 3) / 4)) * 16;
+}
+
+// The fold on the plan of train_kernel.fold_plan: items of nr regions and fc
+// 16-byte feature chunks, S sets of regions a block, `grid` blocks taking the
+// items in turn; its dynamic shared memory must be the one these give.  An
+// error for a plan it cannot take.
+template <typename W>
+int fold(const void* w_t, const void* dctx_t, void* d_feats, int B, int T, int R, int F, int nr,
+         int fc, int S, int grid, int smem, int skip, cudaStream_t stream) {
   constexpr int V = Vec<W>::N;
-  if (F % V || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  const long n = (long)B * R * (F / V);
-  train_feats_fold_kernel<W><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      (const float*)w_t, (const W*)dctx_t, (W*)d_feats, B, T, R, F);
+  if (B < 1 || T < 1 || R < 1 || F < 8 || F % 8 || nr < 1 || nr > R || fc < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nv = F / V, P = (nr + S - 1) / S, nrb = (R + nr - 1) / nr, nfb = (nv + fc - 1) / fc;
+  if (fc > nv || P > kFoldRegions || (long)S * fc > kFoldThreads) return (int)cudaErrorInvalidValue;
+  const long items = (long)B * nrb * nfb;
+  if (items >= (1L << 31) || grid < 1 || grid > items || fold_bytes(T, fc, S, P) != smem ||
+      smem > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const FoldArgs a{(const float*)w_t, dctx_t, d_feats, T, R, F, nr, fc, S, nv, nrb, nfb,
+                   (int)items, skip};
+  cudaError_t err;
+  const FoldKernel kernel = fold_kernel<W>(P, smem, err);
+  if (kernel == nullptr) return (int)err;
+  kernel<<<grid, S * fc, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// How many blocks of the fold's instance (P regions a thread) of `threads`
+// threads and `smem` bytes an SM runs at once, or a negative CUDA error.
+template <typename W>
+int fold_resident(int P, int threads, int smem) {
+  if (threads < 1 || threads > kFoldThreads || smem < 0 || smem > kMaxSmem)
+    return -(int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const FoldKernel kernel = fold_kernel<W>(P, smem, err);
+  int n = 0;
+  if (kernel != nullptr)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace rec
@@ -1474,15 +1676,29 @@ int train_bwd_recurrence_bf16(BWD_PARAMS) { BWD_ARGS(__nv_bfloat16) }
 #undef BWD_PARAMS
 #undef BWD_ARGS
 
-// d_feats [B, R, F] (W) from the fold's operands
-int train_feats_fold_f32(const void* w_t, const void* dctx_t, void* d_feats, int B, int T, int R,
-                         int F, void* stream) {
-  return rec::fold<float>(w_t, dctx_t, d_feats, B, T, R, F, (cudaStream_t)stream);
+// d_feats [B, R, F] (W) from the fold's operands, on a plan of
+// train_kernel.fold_plan (regions and 16-byte feature chunks a block, region
+// sets a block, the grid and the dynamic shared memory it gives)
+#define FOLD_PARAMS                                                                          \
+  const void *w_t, const void *dctx_t, void *d_feats, int B, int T, int R, int F, int nr,    \
+      int fc, int S, int grid, int smem, int skip, void *stream
+int train_feats_fold_f32(FOLD_PARAMS) {
+  return rec::fold<float>(w_t, dctx_t, d_feats, B, T, R, F, nr, fc, S, grid, smem, skip,
+                          (cudaStream_t)stream);
 }
 
-int train_feats_fold_bf16(const void* w_t, const void* dctx_t, void* d_feats, int B, int T,
-                          int R, int F, void* stream) {
-  return rec::fold<__nv_bfloat16>(w_t, dctx_t, d_feats, B, T, R, F, (cudaStream_t)stream);
+int train_feats_fold_bf16(FOLD_PARAMS) {
+  return rec::fold<__nv_bfloat16>(w_t, dctx_t, d_feats, B, T, R, F, nr, fc, S, grid, smem,
+                                  skip, (cudaStream_t)stream);
+}
+#undef FOLD_PARAMS
+
+// How many blocks of the fold (per_thread regions a thread, `threads`
+// threads, `smem` bytes) an SM of the current device runs at once, or a
+// negative CUDA error.
+int train_feats_fold_resident(int bf16, int per_thread, int threads, int smem) {
+  return bf16 ? rec::fold_resident<__nv_bfloat16>(per_thread, threads, smem)
+              : rec::fold_resident<float>(per_thread, threads, smem);
 }
 
 // How many clusters of C CTAs of the forward (bwd = 0) or pass 1 (bwd = 1)

@@ -17,7 +17,9 @@ forward and backward are hand-written CUDA kernels
   the per-row gradients, the attention weights and rounded dctx of every
   step, and for every (step, row) the operands of the weight gradients) and
   ``train_feats_fold`` (:func:`feats_fold`: d_feats, the per-step sum folded
-  once per element in the JAX kernel's order); :func:`wgrad_partial`
+  once per element in the JAX kernel's order, each image's slice of
+  regions copied to shared memory once, on the launch of :func:`fold_plan`);
+  :func:`wgrad_partial`
   (``train_wgrad_partial``) sums the weight-gradient operands over all T*B
   rows in ``WGRAD_SPLITS`` chunks (X^T dGI, Hprev^T dGH, Hprev^T dATT2 and
   the column sums for the biases); :func:`wgrad_reduce`
@@ -67,7 +69,7 @@ hold them against the scan only at one layer.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -82,6 +84,7 @@ from captionax_torch.ops.decode_kernel import (
     _fragments,
     _launch_device,
     _ptr,
+    _sms,
 )
 
 # (CTAs a cluster, rows a cluster) of the recurrence kernels, tried in this
@@ -149,6 +152,114 @@ def _shape(dev, bwd: bool, cdt, B: int, dims, shape: Optional[int]) -> int:
         return shape
     active = {c: max_clusters(dev, bwd, cdt == torch.bfloat16, c, *dims) for c, _ in CLUSTER_SHAPES}
     return cluster_shape(B, active)[0]
+
+
+# the d_feats fold's launch (fold_plan): regions a thread at most (its
+# accumulators), threads a block at most, dynamic shared memory a block at
+# most (two blocks an SM), and the SMs a plan fills unless told (the H100's)
+FOLD_REGIONS = 8
+FOLD_THREADS = 384
+FOLD_SMEM = 232448 // 2 - 1024
+H100_SMS = 132
+# waves of the blocks an SM runs at once that a fold grid holds at most: the
+# second wave's blocks start as the first's end, so that an SM's blocks
+# stagger their loads, folds and stores (PERF.md: at B=1024 this beat one
+# wave in f32 and bf16, and an item a block in f32)
+FOLD_WAVES = 2
+
+
+class FoldPlan(NamedTuple):
+    """A launch of ``train_feats_fold``.  Item i is image i // (region
+    blocks x feature blocks), ``regions`` consecutive regions and ``chunks``
+    consecutive 16-byte chunks of features (the last of an image fewer);
+    block j takes items j, j + grid, ...  A block's ``threads`` = ``sets`` x
+    ``chunks`` threads each hold one chunk of ``per_thread`` consecutive
+    regions (thread = set x chunks + chunk).  ``smem``: two buffers, each an
+    item's dctx_t (T x chunks x 16 bytes) and w_t (T x sets x per_thread
+    floats, each set's rounded up to 16 bytes)."""
+    regions: int
+    chunks: int
+    sets: int
+    per_thread: int
+    threads: int
+    items: int
+    grid: int
+    smem: int
+
+
+def _fold_tile(nr: int, nv: int, T: int, sets: int) -> Tuple[int, int, int, int]:
+    """(sets, regions a thread, w bytes of a buffer, chunks) of an item of nr
+    regions for at least ``sets`` region sets: the chunks as many as the
+    threads and the shared memory allow (< 1: none fits)."""
+    per = -(-nr // sets)
+    sets = -(-nr // per)
+    w_bytes = T * sets * -(-per // 4) * 16
+    return sets, per, w_bytes, min(nv, FOLD_THREADS // sets, (FOLD_SMEM // 2 - w_bytes) // (T * 16))
+
+
+def fold_plan(B: int, T: int, R: int, F: int, dtype: torch.dtype, sms: int = H100_SMS,
+              resident: Optional[int] = None) -> FoldPlan:
+    """The launch of ``train_feats_fold`` for w_t [B, T, R] and dctx_t
+    [B, T, F] in ``dtype``.  With B >= ``sms`` images (the card full) an item
+    is a whole image and a thread holds the most regions (at most
+    FOLD_REGIONS): the fewest shared loads for its products and sums.  With
+    fewer, an image's regions are split into ``sms // B`` items, so that
+    the items run in one wave, and an item takes as many threads as
+    FOLD_THREADS allows: the fewest steps in a thread's chain (at B=64 this
+    beat items of 9 regions, two an SM: PERF.md).  An item takes all of its
+    image's features unless its threads or its shared memory (at most
+    FOLD_SMEM for both buffers) call for feature blocks.  The grid is an
+    item a block, or, given ``resident`` (the blocks of this launch that one
+    SM runs at once, :func:`fold_resident`), at most FOLD_WAVES waves of
+    ``sms`` x ``resident`` blocks, each taking its items in turn.  Raises
+    for F % 8 != 0 and where no block fits."""
+    if dtype not in _SUFFIX:
+        raise ValueError(f"compute dtype {dtype} has no kernel")
+    if F % 8 or F < 8 or min(B, T, R) < 1:
+        raise ValueError(f"train_feats_fold takes F in multiples of 8 and B, T, R >= 1: B={B}, "
+                         f"T={T}, R={R}, F={F}")
+    nv = F // (8 if dtype == torch.bfloat16 else 4)   # 16-byte chunks of a row
+    nr = R if B >= sms else -(-R // max(1, sms // B))
+    fewest = -(-nr // FOLD_REGIONS)
+    tiles = [_fold_tile(nr, nv, T, fewest)]
+    if B < sms:
+        tiles.insert(0, _fold_tile(nr, nv, T, max(fewest, min(nr, FOLD_THREADS // nv))))
+    fitting = [t for t in tiles if t[3] >= 1]
+    if not fitting:
+        raise ValueError(f"train_feats_fold: no block fits T={T}, R={R} (shared memory "
+                         f"{FOLD_SMEM} B, {FOLD_THREADS} threads)")
+    sets, per, w_bytes, fc = fitting[0]
+    fc = -(-nv // -(-nv // fc))                       # the feature blocks evened out
+    items = B * -(-R // nr) * -(-nv // fc)
+    if items >= 2 ** 31:
+        raise ValueError(f"train_feats_fold: {items} items")
+    if resident is not None and resident < 1:
+        raise ValueError(f"train_feats_fold: no block of {sets * fc} threads fits an SM")
+    grid = items if resident is None else min(items, FOLD_WAVES * sms * resident)
+    return FoldPlan(nr, fc, sets, per, sets * fc, items, grid, 2 * (T * fc * 16 + w_bytes))
+
+
+def card_fold_plan(dev: torch.device, B: int, T: int, R: int, F: int,
+                   dtype: torch.dtype) -> FoldPlan:
+    """The launch of :func:`feats_fold` on the card ``dev``: :func:`fold_plan`
+    for its SMs and the blocks of the plan's instance it runs at once."""
+    sms = _sms(dev)
+    tile = fold_plan(B, T, R, F, dtype, sms)
+    return fold_plan(B, T, R, F, dtype, sms,
+                     fold_resident(dev, dtype == torch.bfloat16, tile.per_thread, tile.threads,
+                                   tile.smem))
+
+
+@functools.lru_cache(maxsize=None)
+def fold_resident(dev: torch.device, bf16: bool, per_thread: int, threads: int,
+                  smem: int) -> int:
+    """How many blocks of the fold's instance (per_thread regions a thread)
+    of ``threads`` threads and ``smem`` bytes one SM of the card runs at once."""
+    with torch.cuda.device(dev):
+        n = _cuda.library().train_feats_fold_resident(int(bf16), per_thread, threads, smem)
+    if n < 0:
+        raise RuntimeError(f"train_feats_fold_resident: CUDA error {-n}")
+    return n
 
 
 def pack_recurrence(ua_w: torch.Tensor, wih_t: torch.Tensor, whh_t: torch.Tensor
@@ -438,6 +549,9 @@ MAX_WIDTH = 256
 # attention, the scores alone and the context alone
 SKIP_ATTENTION, SKIP_GATES, SKIP_REVERSE, SKIP_ATTENTION_BACK = 1, 2, 4, 8
 SKIP_SCORES, SKIP_CONTEXT = 16, 32
+# `skip` bits of the fold: the arithmetic (zeros are stored), the copies of
+# its operands from device memory to shared memory, the stores of d_feats
+FOLD_SKIP_ARITH, FOLD_SKIP_STAGE, FOLD_SKIP_STORE = 1, 2, 4
 
 
 def _check_widths(F: int, E: int, H: int) -> None:
@@ -507,9 +621,11 @@ def bwd_recurrence_parts(feats, att1, h0, embeds, ua_w, ua_b, va, wih_t, whh_t, 
     return (w_t, dctx_t), d_att1, d_h0, d_emb, rows, dva_part
 
 
-def feats_fold(w_t: torch.Tensor, dctx_t: torch.Tensor) -> torch.Tensor:
+def feats_fold(w_t: torch.Tensor, dctx_t: torch.Tensor, skip: int = 0) -> torch.Tensor:
     """d_feats from pass 1's fold operands: ``train_feats_fold`` on the
-    card, :func:`feats_fold_plain` for CPU tensors."""
+    card, on the launch of :func:`fold_plan`; :func:`feats_fold_plain` for
+    CPU tensors.  ``skip`` (FOLD_SKIP_* bits) leaves parts out, to time
+    them."""
     if w_t.device.type == "cpu":
         return feats_fold_plain(w_t, dctx_t)
     dev = _launch_device(w_t)
@@ -520,12 +636,12 @@ def feats_fold(w_t: torch.Tensor, dctx_t: torch.Tensor) -> torch.Tensor:
     F = dctx_t.shape[2]
     _check(w_t, "w_t", dev, torch.float32, (B, T, R))
     _check(dctx_t, "dctx_t", dev, cdt, (B, T, F))
-    if F % 8:
-        raise ValueError(f"train_feats_fold takes F in multiples of 8: F={F}")
+    plan = card_fold_plan(dev, B, T, R, F, cdt)
     d_feats = torch.empty((B, R, F), dtype=cdt, device=dev)
     with torch.cuda.device(dev):
         FOLD.launch(f"train_feats_fold_{_SUFFIX[cdt]}", _ptr(w_t), _ptr(dctx_t), _ptr(d_feats),
-                    B, T, R, F, torch.cuda.current_stream(dev).cuda_stream)
+                    B, T, R, F, plan.regions, plan.chunks, plan.sets, plan.grid, plan.smem,
+                    skip, torch.cuda.current_stream(dev).cuda_stream)
     return d_feats
 
 

@@ -206,6 +206,11 @@ def card_and_build():
             if any(k in entry for k in K3_KERNELS):
                 say(f"  K3 {entry}: {regs} registers, {stores} B spill stores, {loads} B spill "
                     "loads")
+        fold = ptxas_report(info.log, "train_feats_fold_kernel")
+        require(len(fold) == 2 * tk.FOLD_REGIONS, f"ptxas reports {len(fold)} fold instances")
+        for entry, (regs, stores, loads) in fold.items():
+            require(regs is not None and stores == 0 and loads == 0,
+                    f"{entry}: ptxas reports spills")
     else:
         say("  the library was already built: no ptxas report to check")
     lib = _cuda.library()
@@ -1840,13 +1845,64 @@ def wgrad_edges() -> None:
             f"max abs err {err:.2e}")
 
 
+# the d_feats fold's plans at their edges, (B, T, R, F): T R odd (the w_t rows
+# of odd images are off 16 bytes) with two regions an item, one element, a
+# small odd shape, the training batch of 64 (items of 25 and 24 regions),
+# feature blocks (T=64, F=1024: four of 52 chunks and one of 48 in f32) and
+# feature blocks of a whole image's regions (B=300: 49 regions an item;
+# blocks take several items in turn)
+FOLD_EDGE = ((3, 25, 49, 200), (1, 1, 1, 8), (5, 7, 9, 24), (64, 25, 49, 200),
+             (2, 64, 9, 1024), (300, 64, 49, 1024))
+
+
+def fold_operands(b, t, r, f, cdt, seed):
+    """w_t [b, t, r] (a softmax over the regions, f32) and dctx_t [b, t, f]
+    in ``cdt``, on the card."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    w_t = torch.softmax(torch.randn((b, t, r), generator=g, device=DEVICE) * 2, dim=2)
+    return w_t, (torch.randn((b, t, f), generator=g, device=DEVICE) * 1e-2).to(cdt)
+
+
+def fold_edges() -> None:
+    """train_feats_fold against its plain version at FOLD_EDGE, f32 and bf16:
+    equal (the same roundings in the same order); and a plan the kernel
+    cannot take is refused, with no launch counted."""
+    dev = torch.device(DEVICE)
+    for i, shape in enumerate(FOLD_EDGE):
+        for cdt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            w_t, dctx_t = fold_operands(*shape, cdt, 90 + i)
+            got = tk.feats_fold(w_t, dctx_t)
+            require(torch.equal(got, tk.feats_fold_plain(w_t, dctx_t)),
+                    f"train_feats_fold {name} (B, T, R, F) = {shape} differs from its plain "
+                    "version")
+            say(f"  train_feats_fold {name} (B, T, R, F) = {shape}: equal to its plain version; "
+                f"plan {tk.card_fold_plan(dev, *shape, cdt)}")
+    w_t, dctx_t = fold_operands(*FOLD_EDGE[0], torch.float32, 90)
+    plan = tk.card_fold_plan(dev, *FOLD_EDGE[0], torch.float32)
+    out = torch.empty((3, 49, 200), device=DEVICE)
+    before = tk.FOLD.launches
+    for bad in (plan._replace(grid=plan.grid + 1), plan._replace(smem=plan.smem - 4),
+                plan._replace(sets=0), plan._replace(regions=50)):
+        try:
+            tk.FOLD.launch("train_feats_fold_f32", w_t.data_ptr(), dctx_t.data_ptr(),
+                           out.data_ptr(), *FOLD_EDGE[0], bad.regions, bad.chunks, bad.sets,
+                           bad.grid, bad.smem, 0, torch.cuda.current_stream().cuda_stream)
+        except RuntimeError:
+            continue
+        raise AssertionError(f"train_feats_fold took a plan it cannot: {bad}")
+    require(tk.FOLD.launches == before, "a refused fold launch was counted")
+    say("  train_feats_fold refuses plans off fold_plan's (grid, shared memory, sets, regions)")
+
+
 def train_small_exactness():
     """K3 at small shapes in f32, with an odd batch (a partial row tile)
     and a batch of one row; at the shapes that cut the cluster tiling
     (CLUSTER_EDGE), at every cluster shape that fits, f32 and bf16; the
-    weight-gradient pass at its tiling's edges; and d(v_a bias) = 0 through
-    the autograd Function on the card."""
+    weight-gradient pass at its tiling's edges; the d_feats fold at its
+    plans' edges; and d(v_a bias) = 0 through the autograd Function on the
+    card."""
     wgrad_edges()
+    fold_edges()
     for i, shape in enumerate(SMALL_TRAIN):
         b, t = shape[:2]
         args = random_core(*shape, torch.float32, 40 + i)
@@ -2089,6 +2145,40 @@ def k3_parts_ms(args, hs, g) -> dict:
     return out
 
 
+FOLD_B = (B, 64)  # the full-width batch; captionax's default training batch
+# the fold with parts left out (its skip bits), by what is left
+FOLD_PARTS = {"loads and stores": tk.FOLD_SKIP_ARITH, "arithmetic and stores": tk.FOLD_SKIP_STAGE,
+              "loads and arithmetic": tk.FOLD_SKIP_STORE,
+              "arithmetic": tk.FOLD_SKIP_STAGE | tk.FOLD_SKIP_STORE,
+              "none": tk.FOLD_SKIP_ARITH | tk.FOLD_SKIP_STAGE | tk.FOLD_SKIP_STORE}
+
+
+def fold_times(fold_ops, cdt, name) -> dict:
+    """train_feats_fold at FOLD_B images of pass 1's operands (the first rows
+    of the B-row batch) beside one torch.bmm of the same sum, its bound and
+    the launch floor (an empty kernel of the plan's grid and threads); at B
+    images also with parts left out (FOLD_PARTS).  -> {images: ms}."""
+    floor_lib = sel_probe.floor_library()
+    out = {}
+    for n in FOLD_B:
+        w_t, dctx_t = fold_ops[0][:n].contiguous(), fold_ops[1][:n].contiguous()
+        plan = tk.card_fold_plan(torch.device(DEVICE), *w_t.shape, dctx_t.shape[2], cdt)
+        w_mat = w_t.transpose(1, 2).to(cdt)
+        out[n] = ms = device_ms(lambda: tk.feats_fold(w_t, dctx_t), 50)
+        lib_ms = device_ms(lambda: torch.bmm(w_mat, dctx_t), 50)
+        n_bytes = nbytes(w_t, dctx_t) + n * w_t.shape[2] * dctx_t.shape[2] * dctx_t.element_size()
+        bms, by = bound_ms(n_bytes, 2 * w_t.numel() * dctx_t.shape[2], cdt)
+        floor = sel_probe.launch_floor_ms(floor_lib, plan.grid, plan.threads)
+        say(f"  train_feats_fold ({name}) at B={n}: {ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, "
+            f"bound {bms:.4f} ms by {by} ({bms / ms:.1%} of it), launch floor {floor:.4f} ms at "
+            f"its grid ({plan.grid} x {plan.threads}); plan {plan} [{CARD}]")
+        if n == B:
+            say(f"    by part, what is left: " + ", ".join(
+                f"{k} {device_ms(lambda: tk.feats_fold(w_t, dctx_t, skip=bits), 50):.4f}"
+                for k, bits in FOLD_PARTS.items()) + " ms")
+    return out
+
+
 def train_times(model, batch, launches, errs):
     """Per launch (CUDA events), at full width in f32 (the default training
     config) and bf16: each K3 kernel, its plain version and its library
@@ -2105,6 +2195,7 @@ def train_times(model, batch, launches, errs):
                         device=DEVICE) * 1e-3
         fold_ops, d_att1, d_h0, d_emb, rows, dva_part = tk.bwd_recurrence_parts(*args, hs, g)
         partial = tk.wgrad_partial(rows)
+        fold_ms = fold_times(fold_ops, cdt, name)
         (fb, ff), (bb, bf), (ob, of) = k3_cost(args, hs)
         parts = k3_parts_ms(args, hs, g)
         for p_name, ms_by in parts.items():
@@ -2160,6 +2251,8 @@ def train_times(model, batch, launches, errs):
                     "max_abs_err": errs[name][kname], "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
                 })
+                if op is tk.FOLD:
+                    out[-1]["ms_b64"] = fold_ms[FOLD_B[1]]
     return out
 
 
