@@ -26,10 +26,22 @@ width of ResNet-152, serves uint8 images through the port's
 ``CaptionService`` (ResNet-152 on K4, then K1 or K2), and times each
 kernel (the cell step's two phases apart, K3's recurrence kernels by
 part, the select kernels beside the launch floor), each train step and the
-image path.  One line per phase gives the phase's seconds.  The line before the last is a
-JSON ``kernels`` record; the last line is ``{"ok": true, "device":
-{...}}``.  Any mismatch, a missing card or a failed build raises, and the
-script exits non-zero without that last line.
+image path.  Phase 20 then drives the training CLIs as a user runs them:
+``train_hypernet`` at full width (480 synthetic images, batches of 64, two
+epochs, ``--fused-scan`` so the recurrence runs on K3, the frozen
+ResNet-152 on K4 behind the card-resident feature cache), checks that K3's
+and K4's kernels launched during ``fit`` and that the warm epoch ran no
+encoder, that the first step's loss equals the per-step loop's, that
+every K3 kernel agrees with its plain version on that step's own inputs,
+that the checkpoint and the train state restore exactly, runs ``evaluate``
+on the checkpoint against the training run's own beam test, then
+``train_gru`` in bf16 through K3 (its step's inputs again through every K3
+kernel and its plain version), and prints ms per train step, images/s, the encoder cold
+and warm and ``test_beam``'s time.  One line per phase gives the phase's
+seconds.  The line before the last is a JSON ``kernels`` record (K3's and
+K4's entries also carry their launches in that ``fit``); the last line is
+``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or a
+failed build raises, and the script exits non-zero without that last line.
 """
 
 from __future__ import annotations
@@ -37,10 +49,13 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
+import pickle
 import re
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -48,6 +63,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from captionax_torch.cli import evaluate as cli_evaluate
+from captionax_torch.cli import train_gru as cli_gru
+from captionax_torch.cli import train_hypernet as cli_hypernet
+from captionax_torch.core.runtime import StepTimer
 from captionax_torch.core.vocab import SPECIAL_TOKENS, STYLE_TOKENS, Vocab
 from captionax_torch.data.transforms import preprocess_images
 from captionax_torch.decode.search import NEG_INF, beam_search, greedy, top_k_first
@@ -69,6 +88,8 @@ from captionax_torch.ops import conv_kernel as ck
 from captionax_torch.ops import decode_kernel as dk
 from captionax_torch.ops import train_kernel as tk
 from captionax_torch.ops.probe import select_times as sel_probe
+from captionax_torch.train import checkpoint as tckpt
+from captionax_torch.train import harness
 from captionax_torch.train import steps as tsteps
 from captionax_torch.train.state import (
     create_train_state,
@@ -1760,7 +1781,13 @@ def random_core(b, t, r, f, e, h, cdt, seed):
             rnd(3 * h, sc=0.1), rnd(3 * h, sc=0.1))
 
 
-def check_k3(args, g, what: str, enforce: bool, shape=None) -> dict:
+def rel_err(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    return ((got.float() - ref.float()).abs().max().item()
+            / max(ref.float().abs().max().item(), 1e-12))
+
+
+def check_k3(args, g, what: str, enforce: bool, shape=None, exact: bool = False) -> dict:
     """Every K3 kernel against its plain version on the same inputs: the
     forward's hs; pass 1's per-row gradients, pass-2 rows, d(v_a) partials
     (one per 8 rows) and the fold's operands; the fold on pass 1's operands;
@@ -1768,27 +1795,48 @@ def check_k3(args, g, what: str, enforce: bool, shape=None) -> dict:
     gradients of the whole backward.  ``shape`` forces the recurrence
     kernels' cluster size (default: train_kernel.cluster_shape's).  f32
     (enforce) is held to the CPU tests' tolerances; otherwise each relative
-    error is printed and held to BF16_REL_BOUND.  -> max abs error per kernel."""
-    rel = {}
+    error is printed and held to BF16_REL_BOUND.  With ``exact`` (bf16),
+    the plain version also runs in f32 on the same (rounded) inputs: an
+    output whose bf16 plain version is itself more than BF16_REL_BOUND from
+    that f32 one is lost to bf16's roundings on these inputs, and the
+    kernel's is held to the f32 one instead, no further from it than the
+    plain version plus BF16_REL_BOUND.  -> max abs error per kernel."""
+    rel, lost = {}, {}
 
-    def cmp(got, ref, name, grad=True):
+    def cmp(got, ref, name, grad=True, ref32=None):
         if enforce:
             return (grad_close(got, ref, f"{what} {name}") if grad else
                     close_or_fail(got, ref, f"{what} {name}", FWD_RTOL, FWD_ATOL))
         err = (got.float() - ref.float()).abs().max().item()
         rel[name] = err / max(ref.float().abs().max().item(), 1e-12)
+        if ref32 is not None and rel_err(ref, ref32) > BF16_REL_BOUND:
+            lost[name] = (rel[name], rel_err(got, ref32), rel_err(ref, ref32))
+            require(lost[name][1] <= lost[name][2] + BF16_REL_BOUND,
+                    f"{what} {name}: relative error against the f32 plain version "
+                    f"{lost[name][1]:.3e}, the bf16 plain version's {lost[name][2]:.3e}")
+            return err
         require(rel[name] <= BF16_REL_BOUND, f"{what} {name}: relative error {rel[name]:.3e}")
         return err
 
     hp = tk.fused_fwd_plain(*args)
-    errs = {"train_fwd": cmp(tk.fused_fwd(*args, shape=shape), hp, "hs", grad=False)}
+    if exact:
+        args32 = tuple(a.float() for a in args)
+        hp32 = tk.fused_fwd_plain(*args32)
+        pp32 = tk.bwd_recurrence_plain(*args32, hp32, g)
+        gp32 = tk.fused_bwd_plain(*args32, hp32, g)
+    else:
+        hp32, gp32 = None, [None] * len(GRAD_NAMES)
+        pp32 = (None,) * 4 + ({k: None for k in ROW_NAMES}, None)
+    errs = {"train_fwd": cmp(tk.fused_fwd(*args, shape=shape), hp, "hs", grad=False,
+                             ref32=hp32)}
     pp = tk.bwd_recurrence_plain(*args, hp, g, fold_operands=True)
     fold_ops, *pk = tk.bwd_recurrence_parts(*args, hp, g, shape=shape)
     d_feats = tk.feats_fold(*fold_ops)
-    e1 = [cmp(d_feats, pp[0], "d_feats")]
-    e1 += [cmp(pk[i], pp[i + 1], n) for i, n in enumerate(("d_att1", "d_h0", "d_emb"))]
-    e1 += [cmp(pk[3][k], pp[4][k], f"row {k}") for k in ROW_NAMES]
-    e1.append(cmp(pk[4], pp[5], "d_va partials (8 rows each)"))
+    e1 = [cmp(d_feats, pp[0], "d_feats", ref32=pp32[0])]
+    e1 += [cmp(pk[i], pp[i + 1], n, ref32=pp32[i + 1])
+           for i, n in enumerate(("d_att1", "d_h0", "d_emb"))]
+    e1 += [cmp(pk[3][k], pp[4][k], f"row {k}", ref32=pp32[4][k]) for k in ROW_NAMES]
+    e1.append(cmp(pk[4], pp[5], "d_va partials (8 rows each)", ref32=pp32[5]))
     e1 += [cmp(fold_ops[0], pp[6][0], "w_t"), cmp(fold_ops[1], pp[6][1], "dctx_t")]
     errs["train_bwd_recurrence"] = max(e1)
     plain_fold = tk.feats_fold_plain(*fold_ops)
@@ -1804,10 +1852,15 @@ def check_k3(args, g, what: str, enforce: bool, shape=None) -> dict:
                                      cmp(dva_k, dva_p, "reduced d_va"))
     gk = tk.fused_bwd(*args, hp, g)
     gp = tk.fused_bwd_plain(*args, hp, g)
-    whole = max(cmp(a, b, f"d_{n}") for n, a, b in zip(GRAD_NAMES, gk, gp))
+    whole = max(cmp(a, b, f"d_{n}", ref32=c) for n, a, b, c in zip(GRAD_NAMES, gk, gp, gp32))
     if not enforce:
         say(f"  {what}: relative error per output (bf16 bound {BF16_REL_BOUND}): "
             + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    if lost:
+        say(f"  {what}: lost to bf16's roundings on these inputs (relative errors: kernel "
+            "against the bf16 plain version, kernel and bf16 plain version against the f32 "
+            "plain version): " + ", ".join(f"{k} {a:.3e}, {b:.3e}, {c:.3e}"
+                                           for k, (a, b, c) in lost.items()))
     errs["whole backward"] = whole
     return errs
 
@@ -2672,6 +2725,320 @@ def k4_width_sweep(encoders, ins) -> None:
             f"[{CARD}]")
 
 
+# ------------------------------------------------------------------ 20: the training CLIs
+# 480 images split 384 / 48 / 48: the 384 training images are six batches of
+# 64 exactly, so epoch 2 draws only images epoch 1 cached, and the encoder
+# must not run in it (with 512 the split leaves 409, of which an epoch takes
+# 384, and epoch 2 would meet some images for the first time)
+CLI_IMAGES = 480
+CLI_BATCH = 64
+CLI_EPOCHS = 2
+CLI_GRU_IMAGES = 128
+CLI_AGREEMENT = 0.99   # evaluate's beam tokens against the training CLI's, as phases 4-9 judge
+CLI_METRIC_TOL = 1e-6
+CLI_STYLES = ("factual", "humour", "romantic")
+
+
+def cli_corpus(tmp: str) -> list:
+    """A vocab pickle (``synthetic_vocab``'s 9,684 words) and a factual
+    caption file (five captions of 8-15 of its words per image) in ``tmp``
+    -> the CLIs' data flags."""
+    vocab = synthetic_vocab()
+    vocab_path = os.path.join(tmp, "vocab.pkl")
+    with open(vocab_path, "wb") as f:
+        pickle.dump(vocab, f)
+    rs = np.random.RandomState(20)
+    words = np.array([vocab.i2w[i] for i in range(len(SPECIAL_TOKENS) + len(STYLE_TOKENS),
+                                                  len(vocab))])
+    caps_path = os.path.join(tmp, "factual_train.txt")
+    with open(caps_path, "w") as f:
+        for i in range(CLI_IMAGES):
+            for k in range(5):
+                f.write(f"synthetic_{i}.jpg#{k}\t"
+                        f"{' '.join(rs.choice(words, rs.randint(8, 16)))}\n")
+    return ["--synthetic", "--vocab-path", vocab_path, "--factual-captions", caps_path,
+            "--batch-size", str(CLI_BATCH)]
+
+
+def cli_counts() -> dict:
+    return {op.name: op.launches for op in tk.KERNELS + ck.KERNELS}
+
+
+def reset_cli_counts() -> None:
+    for op in tk.KERNELS + ck.KERNELS:
+        op.launches = 0
+    ck.LAUNCHES_BY_WIDTH.clear()
+
+
+class SpyTrainer(harness.CaptionTrainer):
+    """The harness with phase 20's readings: each train step timed on the
+    host clock with a sync before and after (and the first step's state,
+    batch and loss kept), each featurize timed the same way with the K4
+    launches it made, each test_beam timed, and the K3 and K4 launches of
+    fit alone.  ``record`` is set before each CLI run."""
+
+    record: dict = {}
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.rec = SpyTrainer.record
+        self.rec.update(trainer=self, steps=[], featurize=[], test_beam=[])
+        self._in_eval = False
+        self._timer = StepTimer()
+        step = self._train_step
+
+        def timed_step(state, batch):
+            new, m = self._timed(step, state, batch)
+            self.rec["steps"].append(self._timer.times[-1] * 1e3)
+            self.rec.setdefault("first", (state, batch, m["train_loss"]))
+            return new, m
+
+        self._train_step = timed_step
+
+    def _timed(self, fn, *args):
+        """fn(*args) on the StepTimer's host clock, with a wait for the card
+        before and after (fn's results may hold no tensor on the card)."""
+        torch.cuda.synchronize()
+        self._timer.start()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        self._timer.stop()
+        return out
+
+    def _featurize(self, batch):
+        k4 = ck.CONV1X1.launches + ck.CONV3X3.launches
+        out = self._timed(super()._featurize, batch)
+        self.rec["featurize"].append({
+            "ms": self._timer.times[-1] * 1e3, "images": len(out["captions"]),
+            "k4": ck.CONV1X1.launches + ck.CONV3X3.launches - k4,
+            "train_step": None if self._in_eval else len(self.rec["steps"])})
+        return out
+
+    def validate(self, *args, **kwargs):
+        self._in_eval = True
+        try:
+            return super().validate(*args, **kwargs)
+        finally:
+            self._in_eval = False
+
+    def test_beam(self, batches):
+        self._in_eval = True
+        try:
+            out = self._timed(super().test_beam, batches)
+        finally:
+            self._in_eval = False
+        self.rec["test_beam"].append(self._timer.times[-1] * 1e3)
+        return out
+
+    def fit(self, *args, **kwargs):
+        before = cli_counts()
+        width_before = dict(ck.LAUNCHES_BY_WIDTH)
+        out = super().fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.rec["fit_counts"] = {k: v - before[k] for k, v in cli_counts().items()}
+        self.rec["fit_by_width"] = {w: n - width_before.get(w, 0)
+                                    for w, n in ck.LAUNCHES_BY_WIDTH.items()}
+        return out
+
+
+@contextlib.contextmanager
+def cli_spies(saved: dict, beams: list):
+    """SpyTrainer in the three CLIs; every checkpoint save also keeps a copy
+    of the tree (``saved[step]``); every beam_search of test_beam keeps its
+    tokens and found flags (``beams``)."""
+    save, search = tckpt.save_checkpoint, harness.beam_search
+
+    def saving(directory, step, tree, max_to_keep=1):
+        saved[int(step)] = [x.detach().clone() for x in tree_leaves(tree)]
+        return save(directory, step, tree, max_to_keep)
+
+    def searching(*args, **kwargs):
+        res = search(*args, **kwargs)
+        beams.append((res.tokens.clone(), res.found.clone()))
+        return res
+
+    mods = (cli_gru, cli_hypernet, cli_evaluate)
+    tckpt.save_checkpoint, harness.beam_search = saving, searching
+    for m in mods:
+        m.CaptionTrainer = SpyTrainer
+    try:
+        yield
+    finally:
+        tckpt.save_checkpoint, harness.beam_search = save, search
+        for m in mods:
+            m.CaptionTrainer = harness.CaptionTrainer
+
+
+def cli_core(params, batch, kind: str, cdt) -> tuple:
+    """The recurrence's inputs of a CLI train step on its own params and
+    batch, as make_*_steps builds them (theta from the f32 hypernet, then
+    bf16 copies of the decoder and theta under bf16 compute)."""
+    batch = {k: torch.as_tensor(batch[k]).to(DEVICE) for k in ("features", "captions", "style_id")
+             if k in batch}
+    with torch.no_grad():
+        theta = None
+        if kind == "hypernet":
+            theta = hypernet_apply(params["hn"], tsteps.style_token_embed(params, batch))
+            params = params["decoder"]
+        if cdt == torch.bfloat16:
+            params = tsteps._bf16(params)
+            theta = None if theta is None else tsteps._bf16(theta)
+        return tk.core_inputs(params, batch["features"].to(cdt), batch["captions"], theta)
+
+
+def check_cli_k3(params, batch, kind: str, cdt, what: str, seed: int) -> None:
+    """check_k3 on a CLI step's own inputs (and a random d hs of 1e-3):
+    f32 held to the CPU tests' tolerances, bf16 to BF16_REL_BOUND (and,
+    where the bf16 plain version itself strays beyond it, against the f32
+    plain version: ``check_k3(exact=True)``)."""
+    args = cli_core(params, batch, kind, cdt)
+    b, t = args[3].shape[:2]
+    g = torch.randn((b, t, H), generator=torch.Generator(device=DEVICE).manual_seed(seed),
+                    device=DEVICE) * 1e-3
+    errs = check_k3(args, g, what, cdt == torch.float32, exact=cdt == torch.bfloat16)
+    say(f"  {what}, (B, T) = ({b}, {t}), every K3 kernel against its plain version: max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" [{CARD}]")
+
+
+def logged(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def training_clis() -> dict:
+    """(20) train_hypernet at full width through the CLI as a user runs it
+    (--fused-scan: K3; the encoder in the feature cache: K4), then evaluate
+    on its checkpoint, then train_gru in bf16 through K3.  -> K3's and K4's
+    launches during train_hypernet's fit, by kernel and by K4 chain width."""
+    rec: dict = {}
+    saved, beams = {}, []
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="captionax-cli-") as tmp, cli_spies(saved, beams):
+        data = cli_corpus(tmp)
+        ckdir = os.path.join(tmp, "hypernet")
+        flags = data + ["--synthetic-images", str(CLI_IMAGES), "--checkpoint-dir", ckdir,
+                        "--fused-scan", "--cache-features-device"]
+        SpyTrainer.record = rec
+        reset_cli_counts()
+        t0 = time.perf_counter()
+        hist = cli_hypernet.main(flags + ["--max-epochs", str(CLI_EPOCHS), "--log-every", "1",
+                                          "--run-name", "phase20"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = cli_counts()
+        trainer = rec["trainer"]
+        fit = rec["fit_counts"]
+        say(f"  train_hypernet, {CLI_IMAGES} images, B={CLI_BATCH}, {CLI_EPOCHS} epochs, "
+            f"--fused-scan --cache-features-device: {run_s:.2f} s; launches during fit "
+            + ", ".join(f"{k} {v}" for k, v in fit.items()) + "; in the whole run "
+            + ", ".join(f"{k} {v}" for k, v in counts.items())
+            + "; K4 during fit by chain width " + str(rec["fit_by_width"]))
+        for op in tk.KERNELS + ck.KERNELS:
+            require(fit[op.name] > 0, f"{op.name} was not launched during the CLI's fit")
+        steps = rec["steps"]
+        per_epoch = int(CLI_IMAGES * 0.8) // CLI_BATCH
+        require(len(steps) == CLI_EPOCHS * per_epoch, f"{len(steps)} train steps")
+        train_feats = [f for f in rec["featurize"] if f["train_step"] is not None]
+        cold = [f for f in train_feats if f["train_step"] < per_epoch]
+        warm = [f for f in train_feats if f["train_step"] >= per_epoch]
+        require(len(warm) == per_epoch and all(f["k4"] == 0 for f in warm),
+                "the encoder ran in epoch 2: " + str([f["k4"] for f in warm]))
+        require(all(f["k4"] > 0 for f in cold), "a cold batch did not run the encoder")
+        losses = [r["train_loss"] for r in logged(os.path.join(ckdir, "phase20.jsonl"))
+                  if "train_loss" in r]
+        require(len(losses) == len(steps) and all(np.isfinite(losses)),
+                f"logged train losses: {losses}")
+        require(all(np.isfinite(h["train_loss_epoch"]) and np.isfinite(h["val_loss_tf"])
+                    for h in hist.values()), f"epoch metrics: {hist}")
+
+        # the first step again through the per-step loop, on the same state and batch
+        state0, batch0, loss0 = rec["first"]
+        loop, _ = make_hypernet_steps(trainer.tx, fused_scan=False)
+        loop_loss = float(loop(state0, batch0)[1]["train_loss"])
+        rel = abs(float(loss0) - loop_loss) / abs(loop_loss)
+        say(f"  first step: K3 loss {float(loss0):.6f}, per-step loop {loop_loss:.6f}, "
+            f"relative difference {rel:.2e} (bound {TRAIN_LOSS_RTOL})")
+        require(rel <= TRAIN_LOSS_RTOL, "the CLI's first K3 step differs from the loop's")
+        check_cli_k3(state0.params, batch0, "hypernet", torch.float32,
+                     f"phase 20 train_hypernet first step f32 B={CLI_BATCH}", 21)
+
+        # the checkpoint: bit for bit the params saved at its step
+        last = tckpt.latest_step(ckdir)
+        restored = tckpt.restore_checkpoint(ckdir, like=trainer.params)
+        require(last in saved and all(
+            a.device == b.device and torch.equal(a, b)
+            for a, b in zip(tree_leaves(restored), saved[last])),
+            f"checkpoint step {last} does not restore to the params saved at it")
+        state_dir = os.path.join(tmp, "state")
+        tckpt.save_train_state(state_dir, trainer.global_step, trainer.state)
+        back = tckpt.restore_train_state(state_dir, trainer.state)
+        mine = tree_leaves([trainer.state.params, list(trainer.state.opt_state),
+                            trainer.state.step])
+        require(all(torch.equal(a, b) for a, b in zip(
+            tree_leaves([back.params, list(back.opt_state), back.step]), mine)),
+            "restore_train_state does not give back the state")
+        say(f"  checkpoint: step {last} of {trainer.global_step} restores bit for bit "
+            f"({len(saved[last])} tensors); the train state (Adam's moments, count "
+            f"{int(back.opt_state.adam.count)}, step {int(back.step)}) round-trips exactly")
+
+        # evaluate on that checkpoint
+        trained = {s: {k[len(f'test_{s}_'):]: v for r in logged(os.path.join(ckdir, "phase20.jsonl"))
+                       for k, v in r.items() if k.startswith(f"test_{s}_")} for s in CLI_STYLES}
+        n_train_beams = len(beams)
+        require(n_train_beams == len(CLI_STYLES), f"{n_train_beams} beam decodes in the test")
+        test_beam_ms = rec["test_beam"]
+        SpyTrainer.record = {}
+        t0 = time.perf_counter()
+        results = cli_evaluate.main(flags + ["--kind", "hypernet"])
+        eval_s = time.perf_counter() - t0
+        for i, style in enumerate(CLI_STYLES):
+            (tt, tf), (et, ef) = beams[i], beams[n_train_beams + i]
+            same = ((tt == et).all(dim=1) & (tf == ef)).float().mean().item()
+            got, ref = results[style], trained[style]
+            require(all(np.isfinite(float(v)) for v in got.values()), f"evaluate {style}: {got}")
+            if last == trainer.global_step:
+                require(same >= CLI_AGREEMENT, f"evaluate {style}: tokens agree on {same:.4f}")
+                if same == 1.0:
+                    worst = max(abs(float(got[k]) - ref[k]) for k in ref)
+                    require(set(got) == set(ref) and worst <= CLI_METRIC_TOL,
+                            f"evaluate {style}: metrics differ by {worst}")
+            say(f"  evaluate {style}: tokens of {len(tf)} images agree with the training "
+                f"CLI's test on {same:.4f}; beam_completed {got['beam_completed']}, "
+                f"beam_bleu1 {got.get('beam_bleu1', float('nan')):.4f}, tf_bleu1 "
+                f"{got['tf_bleu1']:.4f}")
+        step_ms = float(np.median(steps[1:]))
+        say(f"  train_hypernet times: {step_ms:.2f} ms per train step (median of steps "
+            f"2-{len(steps)}, host clock, a sync before and after; first step "
+            f"{steps[0]:.1f} ms), {CLI_BATCH / step_ms * 1e3:.1f} images/s; featurize cold "
+            f"{np.median([f['ms'] for f in cold]):.2f} ms per batch of {CLI_BATCH} (the "
+            f"encoder), warm {np.median([f['ms'] for f in warm]):.3f} ms (the f16 table); "
+            "test_beam " + ", ".join(f"{ms:.1f}" for ms in test_beam_ms)
+            + f" ms per batch of {CLI_IMAGES // 10} (one per style); evaluate {eval_s:.2f} s "
+            f"[{CARD}]")
+
+        # train_gru in bf16 through K3
+        SpyTrainer.record = grec = {}
+        reset_cli_counts()
+        ghist = cli_gru.main(data + ["--synthetic-images", str(CLI_GRU_IMAGES), "--checkpoint-dir",
+                                     os.path.join(tmp, "gru"), "--bf16-compute", "--fused-scan",
+                                     "--cache-features-device", "--max-epochs", "1"])
+        torch.cuda.synchronize()
+        gcounts = cli_counts()
+        for op in tk.KERNELS:
+            require(grec["fit_counts"][op.name] > 0, f"train_gru bf16: {op.name} not launched")
+        gstate, gbatch, _ = grec["first"]
+        check_cli_k3(gstate.params, gbatch, "gru", torch.bfloat16,
+                     f"phase 20 train_gru step bf16 B={CLI_BATCH}", 22)
+        require(all(np.isfinite(h["train_loss_epoch"]) for h in ghist.values()),
+                f"train_gru bf16: {ghist}")
+        say(f"  train_gru --bf16-compute --fused-scan, {CLI_GRU_IMAGES} images: train loss "
+            f"{ghist[0]['train_loss_epoch']:.6f}, val_loss_tf {ghist[0]['val_loss_tf']:.6f}; "
+            f"{grec['steps'][0]:.1f} ms for its one step; launches "
+            + ", ".join(f"{k} {v}" for k, v in gcounts.items()) + f" [{CARD}]")
+    say(f"  the training CLIs' phase: {time.perf_counter() - t_phase:.2f} s [{CARD}]")
+    return {"counts": fit, "by_width": rec["fit_by_width"]}
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -2758,6 +3125,14 @@ def main() -> int:
     finally:
         for svc, _, _ in served.values():
             svc.close()
+    with Phase("20 the training CLIs: train_hypernet (K3, K4), evaluate, train_gru bf16"):
+        cli = training_clis()
+    for k in kernels:
+        if k["name"] in cli["counts"]:
+            k["launches_training_cli"] = cli["counts"][k["name"]]
+        elif k["source"] == K4_SOURCE:
+            width = int(k["name"].split()[2]) - 1
+            k["launches_training_cli"] = cli["by_width"].get(256 * 2 ** width, 0)
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))
