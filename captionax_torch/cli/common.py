@@ -1,10 +1,12 @@
 """Shared CLI plumbing: args, vocab/data resolution, model construction.
 
 Port of the parts of ``captionax/cli/common.py`` that ``train_gru``,
-``train_hypernet`` and ``evaluate`` use.  Every entry point takes real
-flags instead of hard-coded paths.  When the image corpus isn't mounted
-(``--synthetic``, or missing paths), runs use deterministic synthetic
-images over the caption text so the full pipeline still runs end to end.
+``train_hypernet``, ``evaluate``, ``caption`` and ``serve`` use.  Every
+entry point takes real flags instead of hard-coded paths.  A real image
+directory (``--img-dir``) is read through ``data/native_image.py``'s file
+loader; when the image corpus isn't mounted (``--synthetic``, or missing
+paths), runs use deterministic synthetic images over the caption text so
+the full pipeline still runs end to end.
 
 The port's conventions: ``--device`` picks the device (default: the card;
 ``--device cpu`` runs the plain PyTorch versions), and the ``build_*``
@@ -112,11 +114,20 @@ def resolve_flickr_data(data_cfg: DataConfig, vocab, max_len: int) -> FlickrStyl
             factual_lines=factual_lines,
             styled_fixture=data_cfg.styled_fixture,
         )
-    # a real image directory needs the image loader of data/native_image.py,
-    # which comes with the next slice (ROADMAP.md queue 1 item 3)
-    raise NotImplementedError(
-        f"{data_cfg.img_dir}: loading real image files is not ported yet "
-        "(ROADMAP.md queue 1 item 3); pass --synthetic")
+    from captionax_torch.data.native_image import make_file_loader
+
+    humour = (load_styled_captions(data_cfg.humour_captions)
+              if os.path.exists(data_cfg.humour_captions) else [])
+    romantic = (load_styled_captions(data_cfg.romantic_captions)
+                if os.path.exists(data_cfg.romantic_captions) else [])
+    return FlickrStyleData(
+        factual=load_factual_captions(data_cfg.factual_captions),
+        humour=humour,
+        romantic=romantic,
+        vocab=vocab,
+        image_loader=make_file_loader(data_cfg.img_dir),
+        max_len=max_len,
+    )
 
 
 def model_generators(seed: int) -> Tuple[torch.Generator, torch.Generator]:

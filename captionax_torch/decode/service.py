@@ -1,14 +1,16 @@
 """Online caption service: images in, styled captions out, on one card.
 
 Port of ``CaptionService``, ``make_http_server`` and ``serve_background``
-from ``captionax/decode/service.py`` (without ``mesh`` and the int8
-encoder).  Every concurrent request goes through one
+from ``captionax/decode/service.py`` (without ``mesh``).  Every concurrent
+request goes through one
 :class:`captionax_torch.decode.serving.MicroBatcher`: requests that arrive
 while a batch is in flight coalesce into the next fixed-shape batch of
 ``batch_size`` uint8 images.  One dispatch per batch copies the images to
 the card, then runs ``preprocess_images`` (resize to 224 and normalize),
-the frozen ResNet encoder (:class:`captionax_torch.models.encoder.CNNEncoder`,
-its stride-1 bottleneck chains on K4) and the bank-indexed decode: each
+the frozen ResNet encoder (:class:`captionax_torch.models.encoder.CNNEncoder`
+in bf16, its stride-1 bottleneck chains on K4; or, with ``int8_encoder``,
+the calibrated int8 trunk of ``encoder_cnn_int8``, its convs int8 x int8 ->
+int32 library products) and the bank-indexed decode: each
 request's row picks its style from a hypernet theta bank synthesized once,
 when the service is built.  ``use_fused`` (default: on the card) decodes on
 the K1 beam kernels, or K2 with ``decode="greedy"``; otherwise, as on the
@@ -17,6 +19,7 @@ CPU, on the plain ``beam_search`` / ``greedy`` with one theta per row.
 
 from __future__ import annotations
 
+import functools
 import json
 import threading
 import time
@@ -31,9 +34,33 @@ from captionax_torch.decode.search import beam_search, greedy
 from captionax_torch.decode.serving import MicroBatcher, pack_beam_result, unpack_beam_result
 from captionax_torch.eval.metrics import ids_to_text
 from captionax_torch.interop import to_device
-from captionax_torch.models.encoder import CNNEncoder
+from captionax_torch.models.encoder import (
+    CNNEncoder,
+    encoder_cnn_int8,
+    resnet_calibrate,
+    resnet_quantize,
+)
 from captionax_torch.ops.decode_kernel import BeamDecoder, GreedyDecoder
 from captionax_torch.train.steps import resolve_style_id, style_table, synthesize_theta_batched
+
+
+def _int8_encoder(encoder_params, calibration, image_size: int, device: torch.device):
+    """The int8 encoder as captionax's service builds it: calibrate the bf16
+    forward on a preprocessed batch, widen every scale by 1.5 (activations
+    past the calibrated max clip), quantize; -> images -> [B, 49, 2048]
+    (a ``functools.partial`` of ``encoder_cnn_int8``: ``.args[0]`` is the
+    quantized tree)."""
+    params = to_device(encoder_params, device)
+    if calibration is None:
+        calibration = np.random.RandomState(0).randint(
+            0, 256, (8, image_size, image_size, 3), dtype=np.uint8)
+    with torch.no_grad():
+        images = torch.as_tensor(np.asarray(calibration, np.uint8)).to(device)
+        scales = resnet_calibrate(params, preprocess_images(images))
+    scales["stages"] = [[{k: v * 1.5 for k, v in rec.items()} for rec in stage]
+                        for stage in scales["stages"]]
+    qparams = resnet_quantize(params, act_scales=scales)
+    return functools.partial(encoder_cnn_int8, qparams)
 
 
 class CaptionService:
@@ -44,6 +71,10 @@ class CaptionService:
     bank (hypernet only — a plain GRU serves its single trained style under
     whatever name is passed first).  ``encoder_params`` is a ResNet tree
     (``resnet_init`` / ``from_torch_state_dict``), run in bf16.
+    ``int8_encoder`` serves it quantized to int8 instead, with static
+    activation scales calibrated when the service is built on
+    ``int8_calibration`` (uint8 images [N, S, S, 3]; default: 8 images of
+    random pixels from ``RandomState(0)``), times 1.5 as a margin.
     ``device=None`` means the card.
     """
 
@@ -59,6 +90,8 @@ class CaptionService:
         image_size: int = 224,
         use_fused: Optional[bool] = None,
         decode: str = "beam",
+        int8_encoder: bool = False,
+        int8_calibration=None,
         device: DeviceLike = None,
     ):
         if decode not in ("beam", "greedy"):
@@ -81,7 +114,10 @@ class CaptionService:
                                device=dev)
             with torch.no_grad():
                 bank = synthesize_theta_batched(params, style_table(params)[ids])
-        self.encoder = CNNEncoder(encoder_params, torch.bfloat16, dev)
+        if int8_encoder:
+            self.encoder = _int8_encoder(encoder_params, int8_calibration, image_size, dev)
+        else:
+            self.encoder = CNNEncoder(encoder_params, torch.bfloat16, dev)
 
         if use_fused:
             cls = GreedyDecoder if decode == "greedy" else BeamDecoder

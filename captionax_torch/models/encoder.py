@@ -18,14 +18,25 @@ applies scale and bias in bf16; K4, like captionax's own ``fused_stage``,
 applies them in f32 and rounds once.  In bf16 the port therefore matches
 the JAX composition stem -> XLA first blocks -> ``fused_stage`` closely and
 captionax's ``resnet_apply`` to bf16 tolerance; in f32 the two agree to the
-order of sums.  The ``encoder_lstm_*`` encoders and the int8 twin are not
-ported yet.
+order of sums.  The ``encoder_lstm_*`` encoders are not ported yet.
+
+The int8 encoder (:func:`resnet_quantize`, :func:`resnet_calibrate`,
+:func:`resnet_apply_int8`, :func:`encoder_cnn_int8`) keeps captionax's
+arithmetic: the BN scale folded into each kernel in f32, weights quantized
+per output channel (``max|w| / 127``, round half to even, clip +-127),
+activations from a static calibrated scale (or the dynamic per-tensor max),
+each conv an exact int8 x int8 -> int32 sum, dequantized in f32 and cast
+once to the compute dtype; the stem stays unquantized.  captionax computes
+these convs in XLA, outside any Pallas kernel, so the port's int8 products
+are library calls (:func:`int8_matmul`: ``torch._int_mm`` on the card; an
+f64 product, exact for these sums, on the CPU), the 3x3 convs after an NHWC
+im2col.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -167,6 +178,153 @@ class CNNEncoder:
 
     def plain(self, images: torch.Tensor) -> torch.Tensor:
         return self._run(images, fused_stage_plain)
+
+
+# ------------------------------------------------------- int8 inference --
+INT8_MIN_ROWS = 17  # torch._int_mm on the card: m > 16, k and n multiples of 8
+
+
+def resnet_quantize(params: Dict, act_scales: Optional[Dict] = None) -> Dict:
+    """Quantize a folded-BN ResNet for int8 inference, as captionax's
+    ``resnet_quantize``: per conv, the BN scale folds into the kernel in f32
+    and the folded kernel quantizes symmetrically per output channel to int8
+    (``q``, ``wscale``); the bias stays f32 and the stem stays as it is.
+    ``act_scales`` (from :func:`resnet_calibrate`) gives each conv a static
+    activation scale ``ascale`` = max / 127; without it :func:`_qconv` takes
+    the dynamic per-tensor max of its input."""
+    def quantize_conv(p, amax):
+        folded = p["kernel"].float() * p["scale"].float()
+        wscale = torch.clamp(folded.abs().amax(dim=(0, 1, 2)) / 127.0, min=1e-12)
+        q = torch.clamp(torch.round(folded / wscale), -127, 127).to(torch.int8)
+        out = {"q": q, "wscale": wscale, "bias": p["bias"].float()}
+        if amax is not None:
+            amax = torch.as_tensor(amax, dtype=torch.float32, device=wscale.device)
+            out["ascale"] = torch.clamp(amax / 127.0, min=1e-12)
+        return out
+
+    return {"stem": params["stem"], "stages": [
+        [{k: quantize_conv(v, None if act_scales is None else act_scales["stages"][s][b][k])
+          for k, v in block.items()} for b, block in enumerate(blocks)]
+        for s, blocks in enumerate(params["stages"])]}
+
+
+def resnet_calibrate(params: Dict, images: torch.Tensor, compute_dtype=torch.bfloat16) -> Dict:
+    """Each conv's input max over a calibration batch (already normalized),
+    from the forward of captionax's ``resnet_apply`` (every conv on
+    :func:`_conv`, rounded to ``compute_dtype``): the static activation
+    scales for :func:`resnet_quantize`.  Inputs beyond the calibrated range
+    clip when served."""
+    def amax(t):
+        return t.abs().max().float()
+
+    scales: Dict = {"stages": []}
+    x = resnet_stem(params["stem"], images, compute_dtype)
+    for s, blocks in enumerate(params["stages"]):
+        stage_scales = []
+        for b, block in enumerate(blocks):
+            stride = 2 if (s > 0 and b == 0) else 1
+            rec = {"conv1": amax(x)}
+            identity = x
+            y = torch.relu(_conv(x, block["conv1"], 1, compute_dtype))
+            rec["conv2"] = amax(y)
+            y = torch.relu(_conv(y, block["conv2"], stride, compute_dtype))
+            rec["conv3"] = amax(y)
+            y = _conv(y, block["conv3"], 1, compute_dtype)
+            if "downsample" in block:
+                rec["downsample"] = rec["conv1"]
+                identity = _conv(x, block["downsample"], stride, compute_dtype)
+            x = torch.relu(y + identity)
+            stage_scales.append(rec)
+        scales["stages"].append(stage_scales)
+    return scales
+
+
+def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 [m, k] x int8 [k, n] -> int32, exact: every sum of k <= 4608
+    products of |q| <= 127 is below 2^27, which f64 holds exactly."""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 [m, k] x int8 [k, n] -> the exact int32 sums: ``torch._int_mm``
+    on the card (the int8 tensor cores), which takes m > 16 and k, n
+    multiples of 8 and raises on any other shape; the plain version for CPU
+    tensors."""
+    if a.device.type == "cpu":
+        return int8_matmul_plain(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    if m < INT8_MIN_ROWS or k % 8 or n % 8:
+        raise ValueError(f"torch._int_mm takes m > 16 and k, n multiples of 8; got "
+                         f"m={m}, k={k}, n={n}")
+    return torch._int_mm(a, b.contiguous())
+
+
+def im2col(x: torch.Tensor, kh: int, stride: int) -> torch.Tensor:
+    """NHWC x [B, H, W, C], a kh x kh window padded kh // 2 with zeros on
+    each side -> [B, Ho, Wo, kh*kh*C], the columns in the order of an HWIO
+    kernel reshaped to [kh*kh*C, O]."""
+    B, Hh, W, C = x.shape
+    p = kh // 2
+    Ho, Wo = (Hh + 2 * p - kh) // stride + 1, (W + 2 * p - kh) // stride + 1
+    if kh == 1:
+        return x[:, ::stride, ::stride, :]
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    return torch.cat([xp[:, i:i + stride * (Ho - 1) + 1:stride, j:j + stride * (Wo - 1) + 1:stride, :]
+                      for i in range(kh) for j in range(kh)], dim=3)
+
+
+def int8_conv(qx: torch.Tensor, q: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """int8 NHWC activations x int8 HWIO kernel (pad kh // 2) -> the exact
+    int32 sums [B, Ho, Wo, O]: a 1x1 conv is one product over the (strided)
+    pixels, a 3x3 conv one product over its im2col columns."""
+    kh, _, cin, cout = q.shape
+    cols = im2col(qx, kh, stride)
+    B, Ho, Wo, k = cols.shape
+    y = int8_matmul(cols.reshape(B * Ho * Wo, k), q.reshape(kh * kh * cin, cout))
+    return y.reshape(B, Ho, Wo, cout)
+
+
+def _qconv(x: torch.Tensor, qp: Dict, stride: int = 1, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Quantize the activations (the static ``ascale`` when calibrated, else
+    the input's max / 127; f32 division, round half to even, clip +-127),
+    the exact int8 conv, then dequantize in f32 (``y * (ascale * wscale) +
+    bias``) and cast once to ``compute_dtype``."""
+    if "ascale" in qp:
+        ascale = qp["ascale"]
+    else:
+        ascale = torch.clamp(x.abs().max().float() / 127.0, min=1e-12)
+    qx = torch.clamp(torch.round(x.float() / ascale), -127, 127).to(torch.int8)
+    y = int8_conv(qx, qp["q"], stride)
+    deq = y.float() * (ascale * qp["wscale"]) + qp["bias"]
+    return deq.to(compute_dtype)
+
+
+def resnet_apply_int8(qparams: Dict, images: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """The int8 twin of :func:`resnet_apply` over :func:`resnet_quantize`'s
+    tree -> [B, H/32, W/32, 2048] f32: the stem unquantized, every bottleneck
+    conv int8 x int8 -> int32, residual adds and ReLUs in ``compute_dtype``."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+    x = resnet_stem(qparams["stem"], images, compute_dtype)
+    for s, blocks in enumerate(qparams["stages"]):
+        for b, block in enumerate(blocks):
+            stride = 2 if (s > 0 and b == 0) else 1
+            identity = x
+            y = torch.relu(_qconv(x, block["conv1"], 1, compute_dtype))
+            y = torch.relu(_qconv(y, block["conv2"], stride, compute_dtype))
+            y = _qconv(y, block["conv3"], 1, compute_dtype)
+            if "downsample" in block:
+                identity = _qconv(x, block["downsample"], stride, compute_dtype)
+            x = torch.relu(y + identity)
+    return x.float()
+
+
+def encoder_cnn_int8(qparams: Dict, images: torch.Tensor, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """EncoderCNN semantics over the int8 trunk -> [B, 49, 2048] region tokens."""
+    fmap = resnet_apply_int8(qparams, images, compute_dtype)
+    B, h, w, C = fmap.shape
+    return fmap.reshape(B, h * w, C)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

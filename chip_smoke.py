@@ -37,9 +37,18 @@ that the checkpoint and the train state restore exactly, runs ``evaluate``
 on the checkpoint against the training run's own beam test, then
 ``train_gru`` in bf16 through K3 (its step's inputs again through every K3
 kernel and its plain version), and prints ms per train step, images/s, the encoder cold
-and warm and ``test_beam``'s time.  One line per phase gives the phase's
-seconds.  The line before the last is a JSON ``kernels`` record (K3's and
-K4's entries also carry their launches in that ``fit``); the last line is
+and warm and ``test_beam``'s time.  Phase 21 drives the serving CLIs on
+256 written image files (JPEG and PNG, mixed sizes, some gray): ``caption``
+(beam over three styles, greedy, ``--requests``; K4, then K1 or K2; every
+caption against a direct decode of the same files), ``serve``'s
+``build_service`` behind HTTP with 192 concurrent requests, bf16 and
+``--int8-encoder`` (each int8 conv's int32 sums against its plain version,
+the features within captionax's bounds of the f32 encoder), and the
+supervised ``serve`` CLI until two workers have handed over its port
+without a client error.  One line per phase gives the phase's seconds.
+The line before the last is a JSON ``kernels`` record (K3's and K4's
+entries also carry their launches in that ``fit``, K1's, K2's and K4's
+their launches on phase 21's paths); the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or a
 failed build raises, and the script exits non-zero without that last line.
 """
@@ -47,6 +56,7 @@ failed build raises, and the script exits non-zero without that last line.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -63,25 +73,37 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from captionax_torch.cli import caption as cli_caption
 from captionax_torch.cli import evaluate as cli_evaluate
+from captionax_torch.cli import serve as cli_serve
 from captionax_torch.cli import train_gru as cli_gru
 from captionax_torch.cli import train_hypernet as cli_hypernet
 from captionax_torch.core.runtime import StepTimer
 from captionax_torch.core.vocab import SPECIAL_TOKENS, STYLE_TOKENS, Vocab
+from captionax_torch.data import native_image
 from captionax_torch.data.transforms import preprocess_images
 from captionax_torch.decode.search import NEG_INF, beam_search, greedy, top_k_first
 from captionax_torch.decode.serving import (
     MicroBatcher,
+    PipelinedDecoder,
     fetch,
     make_beam_server,
     make_greedy_server,
     pack_beam_result,
     unpack_beam_result,
 )
-from captionax_torch.decode.service import CaptionService
+from captionax_torch.decode.service import CaptionService, make_http_server
+from captionax_torch.decode.supervise import proc_rss_mb
 from captionax_torch.eval.metrics import ids_to_text
 from captionax_torch.models.decoder import attention_gru_init
-from captionax_torch.models.encoder import CNNEncoder, _first_block, resnet_init, resnet_stem
+from captionax_torch.models import encoder as tenc
+from captionax_torch.models.encoder import (
+    CNNEncoder,
+    _first_block,
+    from_torch_state_dict,
+    resnet_init,
+    resnet_stem,
+)
 from captionax_torch.models.hypernet import hypernet_apply, hypernet_init, theta_param_count
 from captionax_torch.ops import _cuda
 from captionax_torch.ops import conv_kernel as ck
@@ -106,6 +128,7 @@ from captionax_torch.train.steps import (
 )
 
 TIME_LIMIT_S = 1100
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # full width of the hypernet attention-GRU model (bench.py's configuration)
 NF, FO, E, H, V, R, MAX_STEPS = 2048, 200, 200, 200, 9684, 49, 50
 MAX_LEN = 20          # greedy captions (fused_greedy's default)
@@ -3039,6 +3062,576 @@ def training_clis() -> dict:
     return {"counts": fit, "by_width": rec["fit_by_width"]}
 
 
+# ------------------------------------------------------------------ 21: the caption and serve CLIs
+CAP_FILES = 256       # image files written for phase 21
+CAP_REQUESTS = 192    # --requests rows and concurrent HTTP requests
+CAP_AGREEMENT = 0.99  # captions equal to a direct decode / to caption's, as phase 18 judges
+INT8_MEAN_REL, INT8_COSINE = 0.1, 0.99  # captionax's int8 bounds (tests/test_encoder.py)
+INT8_TOPS = 1979e12   # dense int8 tensor-core peak of the H100 SXM
+SUP_HANDOVERS = 2
+SUP_CLIENTS = 8
+SUP_DEADLINE_S = 180
+
+
+def image_decoder() -> str:
+    """Which route decodes image files here: the native library (built from
+    csrc/imgdec.cc), PIL, or neither (then phase 21 cannot read files)."""
+    native = native_image.native_available()
+    why = ""
+    if not native:
+        try:
+            ctypes.CDLL(str(native_image._build()))
+        except subprocess.CalledProcessError as exc:
+            lines = (exc.stderr or b"").decode(errors="replace").strip().splitlines()
+            why = f" ({lines[0] if lines else exc})"
+        except (OSError, subprocess.SubprocessError) as exc:
+            why = f" ({type(exc).__name__}: {exc})"
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__}"
+    except ImportError:
+        pil = "no PIL"
+    route = "native" if native else ("PIL" if pil != "no PIL" else "none")
+    say(f"  image decoders on this machine: csrc/imgdec.cc {'builds' if native else 'does not build'}"
+        f"{why}; {pil}; files decode through: {route} [{CARD}]")
+    require(route != "none", "no image decoder on this machine: neither csrc/imgdec.cc "
+            "(g++ with libjpeg/libpng) nor PIL; the file legs of phase 21 cannot run")
+    return route
+
+
+def png_bytes(arr: np.ndarray) -> bytes:
+    """uint8 [h, w] or [h, w, 3] -> a PNG file (filter 0 rows, zlib), for a
+    machine whose decoder is the native library alone."""
+    import struct
+    import zlib
+
+    h, w = arr.shape[:2]
+    color = 2 if arr.ndim == 3 else 0
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = b"".join(b"\0" + arr[y].tobytes() for y in range(h))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def write_images(img_dir: str) -> list:
+    """CAP_FILES seeded images of mixed sizes, every eighth gray: two thirds
+    JPEG and a third PNG where PIL is present, else all PNG."""
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    os.makedirs(img_dir)
+    rs = np.random.RandomState(21)
+    paths = []
+    for i in range(CAP_FILES):
+        h, w = rs.randint(96, 481, 2)
+        arr = rs.randint(0, 256, (h, w, 3), np.uint8)
+        arr = arr[..., 0] if i % 8 == 7 else arr
+        jpeg = Image is not None and i % 3 != 2
+        path = os.path.join(img_dir, f"img{i:03d}." + ("jpg" if jpeg else "png"))
+        if Image is None:
+            with open(path, "wb") as f:
+                f.write(png_bytes(arr))
+        else:
+            Image.fromarray(arr).save(path, **({"quality": 90} if jpeg else {}))
+        paths.append(path)
+    return paths
+
+
+def torchvision_state_dict(enc) -> dict:
+    """A folded ResNet tree -> a torchvision-layout state dict (OIHW
+    kernels; BN gamma = scale, beta = bias, mean 0, var 1 - eps), which
+    ``from_torch_state_dict`` folds back."""
+    sd = {}
+
+    def put(conv, bn, p):
+        sd[conv + ".weight"] = p["kernel"].permute(3, 2, 0, 1).contiguous().cpu()
+        c = p["scale"].numel()
+        sd[bn + ".weight"], sd[bn + ".bias"] = p["scale"].cpu(), p["bias"].cpu()
+        sd[bn + ".running_mean"] = torch.zeros(c)
+        sd[bn + ".running_var"] = torch.full((c,), 1.0 - 1e-5)
+
+    put("conv1", "bn1", enc["stem"])
+    for s, blocks in enumerate(enc["stages"]):
+        for b, blk in enumerate(blocks):
+            pre = f"layer{s + 1}.{b}"
+            for i in (1, 2, 3):
+                put(f"{pre}.conv{i}", f"{pre}.bn{i}", blk[f"conv{i}"])
+            if "downsample" in blk:
+                put(f"{pre}.downsample.0", f"{pre}.downsample.1", blk["downsample"])
+    return sd
+
+
+class TimedPipeline(PipelinedDecoder):
+    """The caption CLI's pipeline, timed from its first batch to its last
+    result (host decode, encoder, decode and the JSONL rows in between)."""
+
+    runs: list = []
+
+    def map(self, feature_batches):
+        t0, n = time.perf_counter(), 0
+        for out in super().map(feature_batches):
+            n += 1
+            yield out
+        TimedPipeline.runs.append((time.perf_counter() - t0, n))
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def direct_texts(params, vocab, paths, rows_or_style, encoder, decode: str) -> list:
+    """The captions of a direct decode of ``paths``: load_paths_batch ->
+    CNNEncoder -> BeamDecoder / GreedyDecoder, in batches of ENC_B, one
+    theta (a style) or the bank with per-row styles (rows)."""
+    if isinstance(rows_or_style, str):
+        gru, rows = synthesize_theta(params, resolve_style_id(params, vocab, rows_or_style)), None
+    else:
+        styles = sorted(set(rows_or_style))
+        ids = torch.tensor([resolve_style_id(params, vocab, s) for s in styles], device=DEVICE)
+        gru = synthesize_theta_batched(params, style_table(params)[ids])
+        rows = np.asarray([styles.index(s) for s in rows_or_style], np.int32)
+    if decode == "beam":
+        dec = dk.BeamDecoder(params["decoder"], gru, max_steps=MAX_STEPS, device=DEVICE)
+    else:
+        dec = dk.GreedyDecoder(params["decoder"], gru, max_len=MAX_STEPS, device=DEVICE)
+    texts = []
+    for i in range(0, len(paths), ENC_B):
+        imgs = native_image.load_paths_batch(paths[i:i + ENC_B])
+        feats = encoder(preprocess_images(torch.from_numpy(imgs).to(DEVICE)))
+        res = dec(feats, None if rows is None else torch.from_numpy(rows[i:i + ENC_B]))
+        toks = (fetch(res) if decode == "greedy"
+                else unpack_beam_result(fetch(pack_beam_result(res))).tokens)
+        texts += [ids_to_text(t, vocab) for t in toks]
+    return texts
+
+
+def caption_runs(tmp, flags, paths, params, vocab, encoder) -> dict:
+    """(21, 3) caption.main: beam over three styles, greedy, --requests;
+    each path's launches, its rows in order, and its captions against a
+    direct decode.  -> {run: (launches, K4 launches by width, rows, s)}."""
+    rs = np.random.RandomState(0)
+    reqs = [(os.path.basename(paths[i]), STYLES[s])
+            for i, s in enumerate(rs.randint(0, len(STYLES), CAP_REQUESTS))]
+    req_path = os.path.join(tmp, "requests.jsonl")
+    with open(req_path, "w") as f:
+        f.write("\n".join(json.dumps({"image": n, "style": s}) for n, s in reqs))
+    runs = {
+        "beam": (["--decode", "beam", "--styles", ",".join(STYLES)], dk.BEAM_KERNELS),
+        "greedy": (["--decode", "greedy"], dk.GREEDY_KERNELS),
+        "requests": (["--requests", req_path], dk.BEAM_KERNELS),
+    }
+    out = {}
+    for name, (extra, kernels) in runs.items():
+        path = os.path.join(tmp, f"caption_{name}.jsonl")
+        TimedPipeline.runs = []
+        t0 = time.perf_counter()
+        n, launches = count_launches(
+            lambda: cli_caption.main(flags + extra + ["--out", path]), f"caption --{name}",
+            tuple(kernels) + ck.KERNELS)
+        wall = time.perf_counter() - t0
+        by_width = dict(ck.LAUNCHES_BY_WIDTH)
+        rows = read_jsonl(path)
+        if name == "requests":
+            want = reqs
+            texts = direct_texts(params, vocab, [os.path.join(tmp, "images", r) for r, _ in reqs],
+                                 [s for _, s in reqs], encoder, "beam")
+        else:
+            styles = STYLES if name == "beam" else ("factual",)
+            want = [(os.path.basename(p), s) for s in styles for p in paths]
+            texts = [t for s in styles
+                     for t in direct_texts(params, vocab, paths, s, encoder, name)]
+        require(n == len(rows) == len(want), f"caption {name}: {n} rows, {len(rows)} written")
+        require([(r["image"], r["style"]) for r in rows] == want, f"caption {name}: rows order")
+        keys = {"image", "style", "caption"} | ({"score", "completed"} if name != "greedy"
+                                                 else set())
+        require(all(set(r) == keys for r in rows), f"caption {name}: {rows[0]}")
+        equal = [r["caption"] == t for r, t in zip(rows, texts)]
+        same = float(np.mean(equal))
+        stream = sum(t for t, _ in TimedPipeline.runs)
+        say(f"  caption --{name}: {len(rows)} rows, {sum(equal)}/{len(rows)} ({same:.4f}) equal "
+            f"to a direct decode (load_paths_batch, CNNEncoder, "
+            f"{'GreedyDecoder' if name == 'greedy' else 'BeamDecoder'}); "
+            f"{len(rows) / stream:.1f} images/s over its {len(TimedPipeline.runs)} streams "
+            f"({stream:.2f} s), {wall:.2f} s the whole call; K4 by chain width {by_width} "
+            f"[{CARD}]")
+        for i in np.flatnonzero(~np.array(equal))[:5]:
+            say(f"  caption --{name} row {i}: {rows[i]['caption']!r} vs {texts[i]!r}")
+        require(same >= CAP_AGREEMENT, f"caption {name}: agreement {same}")
+        out[name] = (launches, by_width, rows, stream)
+    return out
+
+
+def post_all(port: int, items) -> tuple:
+    """Every (bytes, style) as its own POST /caption, all at once from their
+    own threads; -> (answers, per-request seconds, seconds for all)."""
+    import urllib.request
+
+    answers, lat = [None] * len(items), [0.0] * len(items)
+    gate = threading.Barrier(len(items) + 1)
+
+    def ask(i):
+        data, style = items[i]
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/caption?style={style}",
+                                     data=data, headers={"Content-Type": "image/jpeg"})
+        gate.wait()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            answers[i] = (r.status, json.loads(r.read()))
+        lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(items))]
+    for th in threads:
+        th.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=600)
+    many = time.perf_counter() - t0
+    require(not any(th.is_alive() for th in threads), "an HTTP request did not finish")
+    require(all(a is not None for a in answers), "an HTTP request failed")
+    return answers, np.asarray(lat), many
+
+
+def http_get(port: int, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        require(r.status == 200, f"GET {path}: {r.status}")
+        return json.loads(r.read())
+
+
+class Int8Spy:
+    """Within: every int8 conv of the encoder also computes its plain
+    version's int32 sums (``check``; they must be equal), counts its bytes
+    (the int8 input, the weights, the int32 output, each once) and
+    operations, and records CUDA events around the product itself (im2col
+    and ``torch._int_mm``)."""
+
+    def __init__(self, check: bool):
+        self.real, self.check, self.convs, self.n_bytes, self.ops = tenc.int8_conv, check, 0, 0, 0
+        self.events = []
+
+    def __call__(self, qx, q, stride=1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = self.real(qx, q, stride)
+        end.record()
+        self.events.append((start, end))
+        kh, _, cin, cout = q.shape
+        if self.check:
+            cols = tenc.im2col(qx, kh, stride).reshape(-1, kh * kh * cin)
+            ref = tenc.int8_matmul_plain(cols, q.reshape(-1, cout))
+            require(torch.equal(y.reshape(-1, cout), ref), f"int8 conv {self.convs}: the int32 "
+                    "sums differ from the plain version's")
+        self.convs += 1
+        self.n_bytes += qx.numel() + q.numel() + y.numel() * 4
+        self.ops += 2 * y.numel() * kh * kh * cin
+        return y
+
+    def products_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+    def __enter__(self):
+        tenc.int8_conv = self
+        return self
+
+    def __exit__(self, *exc):
+        tenc.int8_conv = self.real
+        return False
+
+
+def int8_checks(svc8, enc_params, images: np.ndarray, bf16_ms_fn) -> None:
+    """(21, 4) The int8 service's encoder on one batch of written images:
+    each int8 conv's int32 sums against its plain version, the features
+    against the f32 encoder (K4's f32 route) within captionax's bounds, and
+    its time beside the bf16 encoder's and the int8 bound."""
+    x = preprocess_images(torch.from_numpy(images).to(DEVICE))
+    with Int8Spy(check=True) as spy:
+        q = svc8.encoder(x)
+        torch.cuda.synchronize()
+    with Int8Spy(check=False) as timed:
+        svc8.encoder(x)
+        products_ms = timed.products_ms()
+    f32 = CNNEncoder(enc_params, torch.float32, DEVICE)(x)
+    require(tuple(q.shape) == tuple(f32.shape) == (len(images), 49, 2048), f"int8 {q.shape}")
+    require(bool(torch.isfinite(q).all()), "int8 features: non-finite")
+    mean_rel = ((q - f32).abs().mean() / (f32.abs().mean() + 1e-6)).item()
+    cos = F.cosine_similarity(q.flatten(), f32.flatten(), dim=0).item()
+    int8_ms = device_ms(lambda: svc8.encoder(x), 5)
+    bf16_ms = bf16_ms_fn(x)
+    bms, by = max((spy.n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                  (spy.ops / INT8_TOPS * 1e3, "operations"))
+    say(f"  int8 encoder, a batch of {len(images)} files: {spy.convs} int8 convs, each's int32 sums "
+        f"equal to the plain version's (im2col + an f64 product); features against the f32 "
+        f"encoder: mean |d| / mean |f| {mean_rel:.4f} (bound {INT8_MEAN_REL}), cosine {cos:.5f} "
+        f"(bound {INT8_COSINE}); {int8_ms:.3f} ms per batch (bf16 encoder {bf16_ms:.3f}), of it "
+        f"the int8 products (im2col, torch._int_mm) {products_ms:.3f} ms; their bound "
+        f"{bms:.4f} ms by {by} ({spy.ops / 1e12:.3f} TOP, {spy.n_bytes / 1e6:.1f} MB) [{CARD}]")
+    require(mean_rel < INT8_MEAN_REL and cos > INT8_COSINE, "int8 features outside captionax's "
+            f"bounds: {mean_rel}, {cos}")
+
+
+def http_services(flags, paths, beam_rows, enc_params) -> dict:
+    """(21, 4) serve's build_service on the card, bf16 then --int8-encoder,
+    behind make_http_server: 192 concurrent POSTs of file bytes across the
+    three styles, answers against caption's for the same file and style;
+    /healthz and /stats.  -> {"bf16"/"int8": launches}."""
+    rs = np.random.RandomState(0)
+    picks = [(paths[i], STYLES[s]) for i, s in enumerate(rs.randint(0, len(STYLES), CAP_REQUESTS))]
+    items = []
+    for path, style in picks:
+        with open(path, "rb") as f:
+            items.append((f.read(), style))
+    by_caption = {(r["image"], r["style"]): r["caption"] for r in beam_rows}
+    serve_flags = flags + ["--styles", ",".join(STYLES), "--window", str(ENC_B)]
+    out, texts = {}, {}
+    for kind in ("bf16", "int8"):
+        args = cli_serve.make_serve_parser().parse_args(
+            serve_flags + (["--int8-encoder"] if kind == "int8" else []))
+        t0 = time.perf_counter()
+        svc = cli_serve.build_service(args)
+        build_s = time.perf_counter() - t0
+        srv = make_http_server(svc, "127.0.0.1", 0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            port = srv.server_address[1]
+            kernels = dk.BEAM_KERNELS + (ck.KERNELS if kind == "bf16" else ())
+            first = post_all(port, items[:1])[2]  # one request alone: the first dispatch's costs
+            (answers, lat, many), launches = count_launches(
+                lambda: post_all(port, items), f"serve {kind}", kernels)
+            k4 = sum(op.launches for op in ck.KERNELS)
+            launches.update({op.name: op.launches for op in ck.KERNELS})
+            require(kind == "bf16" or k4 == 0, f"the int8 service launched K4 {k4} times")
+            for (status, body), (_, style) in zip(answers, items):
+                require(status == 200 and body["style"] == style and isinstance(body["caption"], str)
+                        and set(body) == {"caption", "score", "completed", "style"},
+                        f"serve {kind}: {status} {body}")
+                require(all(w in svc.vocab.w2i for w in body["caption"].split()),
+                        f"serve {kind}: unknown word")
+            texts[kind] = [b["caption"] for _, b in answers]
+            health, stats = http_get(port, "/healthz"), http_get(port, "/stats")
+            require(health == {"status": "ok", "styles": list(STYLES), "decode": "beam"},
+                    f"healthz {health}")
+            require(stats["served"] == len(items) + 1 and stats["errors"] == 0, f"stats {stats}")
+            if kind == "bf16":
+                same = np.mean([t == by_caption[(os.path.basename(p), s)]
+                                for t, (p, s) in zip(texts[kind], picks)])
+                say(f"  serve bf16: {len(items)} concurrent POST /caption in {many:.3f} s "
+                    f"({len(items) / many:.1f} captions/s), client p50 "
+                    f"{np.percentile(lat, 50) * 1e3:.1f} ms, p95 {np.percentile(lat, 95) * 1e3:.1f}"
+                    f" ms; /stats p50 {stats['p50_ms']} ms, p95 {stats['p95_ms']} ms, rss "
+                    f"{stats.get('rss_mb')} MB; {same:.4f} of captions equal caption's for the "
+                    f"same file and style; build_service {build_s:.2f} s, then one request alone "
+                    f"{first * 1e3:.1f} ms [{CARD}]")
+                require(same >= CAP_AGREEMENT, f"serve bf16 vs caption: {same}")
+                bf16_encoder = svc.encoder
+            else:
+                agree = np.mean([a == b for a, b in zip(texts["int8"], texts["bf16"])])
+                say(f"  serve --int8-encoder: {len(items)} concurrent POST /caption in {many:.3f} s"
+                    f" ({len(items) / many:.1f} captions/s), client p50 "
+                    f"{np.percentile(lat, 50) * 1e3:.1f} ms, p95 {np.percentile(lat, 95) * 1e3:.1f}"
+                    f" ms; beam captions equal to the bf16 service's on {agree:.4f}; "
+                    f"build_service (calibration included) {build_s:.2f} s, then one request alone "
+                    f"{first * 1e3:.1f} ms [{CARD}]")
+                int8_checks(svc, enc_params, native_image.load_paths_batch(paths[:ENC_B]),
+                            lambda x: device_ms(lambda: bf16_encoder(x), 5))
+            out[kind] = (launches, dict(ck.LAUNCHES_BY_WIDTH))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            svc.close()
+    return out
+
+
+def proc_started(pid: int) -> float:
+    """A process's start on the host's wall clock (/proc/<pid>/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f if line.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def supervised(tmp: str, flags, paths, base_rss_mb: float) -> dict:
+    """(21, 5) python -m captionax_torch.cli.serve --rss-limit-mb below a
+    worker's RSS, as a subprocess: the supervisor rolls its workers without
+    pause while SUP_CLIENTS threads post images; >= SUP_HANDOVERS handovers
+    with zero client errors.  ``base_rss_mb`` is this process's RSS once it
+    had torch, a CUDA context and the kernel library: every worker holds at
+    least as much, so half of it is below any worker's RSS."""
+    import urllib.request
+
+    limit = base_rss_mb / 2
+    port = free_port()
+    argv = [sys.executable, "-m", "captionax_torch.cli.serve", *flags, "--styles",
+            ",".join(STYLES), "--window", str(ENC_B), "--port", str(port), "--rss-limit-mb",
+            f"{limit:.0f}", "--drain-grace", "1"]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log_path = os.path.join(tmp, "supervisor.log")
+    t_start = time.time()
+    proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    events, ready = [], {}
+    lock = threading.Lock()
+
+    def pump():
+        with open(log_path, "w") as log:
+            for line in proc.stdout:
+                now = time.time()
+                log.write(f"{now - t_start:9.3f} {line}")
+                m = re.match(r"\[worker (\d+)\] (.*)", line)
+                with lock:
+                    if m and "WORKER_READY" in m[2]:
+                        pid = int(m[1])
+                        try:
+                            ready[pid] = now - proc_started(pid)
+                        except OSError:
+                            ready[pid] = float("nan")
+                    if "; rolling" in line or (m and "activated" in m[2]):
+                        events.append((now, line.strip()))
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    stop = threading.Event()
+    errors, done = [], []
+    blobs = []
+    for p in paths[:32]:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+
+    def client(ci):
+        i = ci
+        while not stop.is_set():
+            try:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/caption?style={STYLES[i % len(STYLES)]}",
+                    data=blobs[i % len(blobs)], headers={"Content-Type": "image/jpeg"})
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    body = json.loads(r.read())
+                    ok = r.status == 200 and isinstance(body.get("caption"), str)
+                with lock:
+                    (done if ok else errors).append((time.time(), body))
+            except Exception as exc:  # every client error counts against the handover
+                with lock:
+                    errors.append((time.time(), repr(exc)))
+            i += SUP_CLIENTS
+
+    clients = []
+    try:
+        deadline = time.time() + SUP_DEADLINE_S
+        while not ready and time.time() < deadline and proc.poll() is None:
+            time.sleep(0.2)
+        require(bool(ready), "the first serve worker did not become ready")
+        clients = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(SUP_CLIENTS)]
+        for th in clients:
+            th.start()
+        while (sum("activated" in e for _, e in events) < SUP_HANDOVERS
+               and time.time() < deadline and proc.poll() is None):
+            time.sleep(0.5)
+        time.sleep(2.0)  # traffic on the last worker too
+    finally:
+        stop.set()
+        for th in clients:
+            th.join(timeout=150)
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)  # the supervisor retires its workers
+            try:
+                proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                pass
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)  # and nothing of the group outlives the phase
+        proc.wait()
+        reader.join(timeout=30)
+    rolls = [t for t, e in events if "; rolling" in e]
+    acts = [t for t, e in events if "activated" in e]
+    worker_rss = [m[1] for _, e in events for m in [re.search(r"rss (\d+) MB", e)] if m]
+    times = sorted(t for t, _ in done)
+    gaps = np.diff(times) if len(times) > 1 else np.zeros(1)
+    starts = [s for s in ready.values() if np.isfinite(s)]
+    say(f"  serve --rss-limit-mb {limit:.0f} (half this process's RSS after phase 1, "
+        f"{base_rss_mb:.0f} MB, below any worker's; workers rolled at " + ", ".join(worker_rss)
+        + f" MB): {len(acts)} handovers, {len(done)} "
+        f"requests answered, {len(errors)} client errors from {SUP_CLIENTS} clients; worker start "
+        f"to ready " + ", ".join(f"{s:.2f}" for s in starts) + " s; rolling -> activated "
+        + ", ".join(f"{(a - r) * 1e3:.0f}" for r, a in zip(rolls, acts)) + " ms; the longest "
+        f"pause between answers {gaps.max() * 1e3:.0f} ms [{CARD}]")
+    for t, e in errors[:5]:
+        say(f"  client error at {t - t_start:.2f} s: {e}")
+    if len(acts) < SUP_HANDOVERS or errors:
+        with open(log_path) as f:
+            say("  the supervisor's output (seconds from its start):\n"
+                + "".join(f.readlines()[-40:]))
+    require(len(acts) >= SUP_HANDOVERS, f"{len(acts)} handovers")
+    require(not errors, f"{len(errors)} client errors across the handovers")
+    require(len(done) > SUP_CLIENTS, f"only {len(done)} requests answered")
+    return {"start_s": starts, "handovers": len(acts)}
+
+
+def caption_and_serve(model, enc, base_rss_mb: float) -> dict:
+    """(21) The caption and serve CLIs as a user runs them, at full width:
+    256 seeded image files, a port checkpoint of the hypernet model (+0.26
+    on </s>), the seeded vocab and a ResNet-152 state dict; caption.main
+    (beam, greedy, --requests), build_service behind HTTP (bf16, int8) and
+    the supervised serve CLI.  -> launches by path."""
+    t_phase = time.perf_counter()
+    route = image_decoder()
+    with tempfile.TemporaryDirectory(prefix="captionax-serve-") as tmp:
+        paths = write_images(os.path.join(tmp, "images"))
+        t0 = time.perf_counter()
+        imgs = native_image.load_paths_batch(paths[:ENC_B])
+        decode_ms = [(time.perf_counter() - t0) * 1e3]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            native_image.load_paths_batch(paths[ENC_B:2 * ENC_B])
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        require(imgs.shape == (ENC_B, IMG, IMG, 3) and imgs.dtype == np.uint8, f"{imgs.shape}")
+        say(f"  host batch decode ({route}) of {ENC_B} files to {IMG}x{IMG}: "
+            + ", ".join(f"{ms:.1f}" for ms in decode_ms) + f" ms [{CARD}]")
+        params = {"decoder": mid_copy(model["decoder"]), "hn": model["hn"]}
+        vocab = synthetic_vocab()
+        vocab_path, ckdir = os.path.join(tmp, "vocab.pkl"), os.path.join(tmp, "ckpt")
+        with open(vocab_path, "wb") as f:
+            pickle.dump(vocab, f)
+        tckpt.save_checkpoint(ckdir, 1, params)
+        sd_path = os.path.join(tmp, "resnet152.pt")
+        torch.save(torchvision_state_dict(enc), sd_path)
+        enc_params = from_torch_state_dict(torch.load(sd_path), ENC_DEPTH, device=DEVICE)
+        encoder = CNNEncoder(enc_params, torch.bfloat16, DEVICE)
+        model_flags = ["--vocab-path", vocab_path, "--checkpoint-dir", ckdir,
+                       "--encoder-weights", sd_path, "--encoder-depth", str(ENC_DEPTH),
+                       "--num-features", str(NF), "--feature-size", str(FO), "--embed-size",
+                       str(E), "--hidden-size", str(H), "--batch-size", str(ENC_B),
+                       "--beam-max-steps", str(MAX_STEPS), "--device", DEVICE]
+        cli_caption.PipelinedDecoder = TimedPipeline
+        try:
+            caps = caption_runs(tmp, model_flags + ["--images", os.path.join(tmp, "images")],
+                                paths, params, vocab, encoder)
+        finally:
+            cli_caption.PipelinedDecoder = PipelinedDecoder
+        served = http_services(model_flags, paths, caps["beam"][2], enc_params)
+        sup = supervised(tmp, model_flags, paths, base_rss_mb)
+    say(f"  the caption and serve CLIs' phase: {time.perf_counter() - t_phase:.2f} s [{CARD}]")
+    return {"caption": {k: v[:2] for k, v in caps.items()}, "serve": served, "sup": sup}
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -3054,6 +3647,7 @@ def main() -> int:
     t0 = time.perf_counter()
     with Phase("1 card and build"):
         card_and_build()
+    base_rss_mb = proc_rss_mb(os.getpid())
     with Phase("2 small-shape exactness, beam"):
         small_exactness()
     with Phase("3 small-shape exactness, greedy"):
@@ -3133,6 +3727,23 @@ def main() -> int:
         elif k["source"] == K4_SOURCE:
             width = int(k["name"].split()[2]) - 1
             k["launches_training_cli"] = cli["by_width"].get(256 * 2 ** width, 0)
+    with Phase("21 the caption and serve CLIs: caption (K4 + K1, K2), serve (bf16, int8), "
+               "the supervisor"):
+        cap = caption_and_serve(model, enc, base_rss_mb)
+    for k in kernels:
+        op = k["name"].split(" (")[0]
+        if k["source"] == K4_SOURCE:
+            width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
+            for run, (_, by_width) in cap["caption"].items():
+                k[f"launches_caption_{run}"] = by_width.get(width, 0)
+            k["launches_serve"] = cap["serve"]["bf16"][1].get(width, 0)
+        elif k["replaces"] in (BEAM_TPU, GREEDY_TPU):
+            runs = ("beam", "requests") if k["replaces"] == BEAM_TPU else ("greedy",)
+            for run in runs:
+                k[f"launches_caption_{run}"] = cap["caption"][run][0][op]
+            if k["replaces"] == BEAM_TPU:
+                k["launches_serve"] = cap["serve"]["bf16"][0][op]
+                k["launches_serve_int8"] = cap["serve"]["int8"][0][op]
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))

@@ -114,6 +114,24 @@ def _entry_caption_service():
     CaptionService({}, {}, None)
 
 
+def _entry_caption_service_int8():
+    from captionax_torch.decode.service import CaptionService
+
+    CaptionService({}, {}, None, int8_encoder=True)
+
+
+def _entry_build_service():
+    from captionax_torch.cli.serve import build_service, make_serve_parser
+
+    build_service(make_serve_parser().parse_args(["--encoder-depth", "50"]))
+
+
+def _entry_caption_main():
+    from captionax_torch.cli.caption import main
+
+    main(["--images", str(ROOT / "tests" / "fixtures" / "images"), "--encoder-depth", "50"])
+
+
 def _entry_cnn_encoder():
     from captionax_torch.models.encoder import CNNEncoder
 
