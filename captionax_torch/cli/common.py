@@ -14,7 +14,8 @@ functions draw their weights from a ``torch.Generator`` on the host and
 place them on ``device``.  :func:`model_generators` gives the two
 generators a run draws its decoder and its encoder from, so that
 ``evaluate`` rebuilds the training run's encoder.  ``--mesh-data`` other
-than 0 raises: data parallelism is ``ROADMAP.md`` queue 1 item 9.
+than 0 raises: data parallelism is the ``ROADMAP.md`` queue item
+"Parallelism".
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def resolve_mesh(args):
     if n:
         raise NotImplementedError(
             f"--mesh-data {n}: data parallelism is not ported yet "
-            "(ROADMAP.md queue 1 item 9)")
+            "(the ROADMAP.md queue item \"Parallelism\")")
     return None
 
 

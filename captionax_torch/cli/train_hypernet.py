@@ -4,12 +4,17 @@ Port of ``captionax/cli/train_hypernet.py`` (the reference's
 hypernet_attention.py): random per-batch style, CE on teacher-forced
 logits, plateau LR on TF val loss, top-1 checkpoint, then beam-search test
 per style.  Runs on the card unless ``--device cpu`` is given;
-``--fused-scan`` runs the teacher-forced recurrence on K3.
+``--fused-scan`` runs the teacher-forced recurrence on K3.  ``--mixup`` or
+``--style-aux`` adds a style loss scored by the frozen classifier that
+``--style-classifier`` names (a pickle of numpy arrays, as
+``cli/train_classifier --save`` writes it in either package).
 
     python -m captionax_torch.cli.train_hypernet --synthetic --max-epochs 2
 """
 
 from __future__ import annotations
+
+import pickle
 
 from captionax_torch.cli.common import (
     build_encoder,
@@ -23,6 +28,7 @@ from captionax_torch.cli.common import (
     resolve_vocab,
 )
 from captionax_torch.core.runtime import resolve_device
+from captionax_torch.interop import from_jax_params
 from captionax_torch.train.harness import CaptionTrainer
 from captionax_torch.train.steps import dedicated_style_embed, style_token_embed
 
@@ -32,8 +38,10 @@ def main(argv=None):
     parser.add_argument("--encoder-weights", type=str, default="",
                         help="torchvision resnet state_dict (.pt) to fold")
     parser.add_argument("--style-classifier", type=str, default="",
-                        help="style classifier params, used only with --mixup / "
-                             "--style-aux (not ported yet)")
+                        help="pickled style classifier params, small OR bert "
+                             "(cli/train_classifier --kind small|style3 --save); "
+                             "the probe kind is read from the params; required "
+                             "with --mixup / --style-aux")
     parser.add_argument("--init-hn", type=str, default="",
                         help="warm-start the hypernet from the 'hn' subtree of "
                              "a port checkpoint directory (the reference's "
@@ -41,10 +49,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
     mesh = resolve_mesh(args)
-    if train_cfg.mixup or train_cfg.style_aux or args.style_classifier:
-        raise NotImplementedError(
-            "--mixup / --style-aux / --style-classifier: the style-classifier "
-            "objectives are not ported yet (ROADMAP.md queue 1 item 6)")
     device = resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)
@@ -64,9 +68,17 @@ def main(argv=None):
         print(f"hypernet warm-started from {args.init_hn}")
     encoder_params = build_encoder(model_cfg, g_encoder, args.encoder_weights, device)
 
+    clf_params = None
+    if train_cfg.mixup or train_cfg.style_aux:
+        if not args.style_classifier:
+            raise SystemExit("--mixup/--style-aux require --style-classifier")
+        with open(args.style_classifier, "rb") as f:
+            clf_params = from_jax_params(pickle.load(f), device)
+
     trainer = CaptionTrainer(
         params, "hypernet", train_cfg, vocab,
         encoder_params=encoder_params, run_name=args.run_name,
+        style_classifier_params=clf_params,
         mesh=mesh, device=device,
         embed_fn=dedicated_style_embed if model_cfg.dedicated_style_tokens
         else style_token_embed,

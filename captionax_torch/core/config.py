@@ -3,9 +3,6 @@
 The port's own copy of ``captionax/core/config.py`` (importing anything of
 captionax runs its package init, which imports JAX): the same fields, the
 same defaults, the same flag mapping.  Every CLI maps flags onto these.
-Options the port's harness does not run yet (``mixup``, ``style_aux``)
-keep their fields so that the flags parse as they do in captionax; the
-harness raises when they are set.
 """
 
 from __future__ import annotations
@@ -59,8 +56,11 @@ class TrainConfig:
     max_len: int = 25
     beam_size: int = 3
     beam_max_steps: int = 50
-    # style-classifier objectives of captionax's harness; the port's
-    # harness raises NotImplementedError when either is set
+    # style-classifier objectives of the hypernet (train/steps.py
+    # StyleLossStep): the reference's mixup, or captionax's style-aux;
+    # at most one.  The *_split flags are read as captionax reads them
+    # (and refused with a mesh), but take the same single backward pass:
+    # captionax's two-pass gradient was a way round its compiler
     mixup: bool = False
     mixup_alpha: float = 0.3
     mixup_split: bool = False

@@ -21,9 +21,22 @@ As in captionax:
   ``log_every`` steps read their scalars;
 - ``test_beam`` decodes batch i+1 before it scores batch i on the host.
 
-Not ported yet: ``mesh`` (data parallelism, ``ROADMAP.md`` queue 1 item 9)
-and the style-classifier objectives ``config.mixup`` / ``config.style_aux``
-(queue 1 item 6); each raises ``NotImplementedError``.
+The hypernet's style-classifier objectives, ``config.mixup`` (the
+reference's style mixup) and ``config.style_aux`` (captionax's
+style-identification term), score a free-running caption with a frozen
+classifier (``style_classifier_params``; ``train/steps.py``'s
+``StyleLossStep``).  Their steps run the per-step recurrence, as
+captionax's run its scan: ``fused_scan`` and ``bf16_compute`` do not reach
+them, so K3 is not on their path; the encoder (K4) is.  Each step draws
+from a generator of its own, seeded from ``config.seed`` and the state's
+step (:func:`step_generator`), where captionax folds the step into
+``PRNGKey(seed)``.  The step is counted on the host
+(:class:`DrawingStep`): the card's counter is read only for a state the
+step did not make (the first step, a resume, the state ``lr_find``
+restores), so the host never waits for a step to finish to draw the next.
+
+Not ported yet: ``mesh`` (data parallelism, the ``ROADMAP.md`` queue item
+"Parallelism"); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,7 +68,9 @@ from captionax_torch.train.state import (
 )
 from captionax_torch.train.steps import (
     make_gru_steps,
+    make_hypernet_mixup_steps,
     make_hypernet_steps,
+    make_hypernet_styleaux_steps,
     style_token_embed,
 )
 
@@ -128,6 +143,56 @@ class FeatureCache:
         return np.stack([self._store[k] for k in keys]).astype(np.float32)
 
 
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """A fresh CPU generator for train step ``step`` of a run with ``seed``:
+    the two mixed by numpy's ``SeedSequence``, so that neighbouring seeds
+    and steps give unrelated streams."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+class DrawingStep:
+    """``step(state, batch, generator)`` as ``train_step(state, batch)``,
+    each call with ``step_generator(seed, state.step)``.  The step number
+    is counted on the host; ``state.step`` is read (a wait for the card)
+    only when ``state`` is not the one the previous call returned."""
+
+    def __init__(self, step, seed: int):
+        self.step, self.seed = step, int(seed)
+        self._made, self._n = None, 0  # the step counter of the last state made, its value
+
+    def __call__(self, state, batch):
+        if state.step is not self._made:
+            self._n = int(state.step)
+        state, metrics = self.step(state, batch, step_generator(self.seed, self._n))
+        self._made, self._n = state.step, self._n + 1
+        return state, metrics
+
+
+def _style_loss_step(tx, config: TrainConfig, params, embed_fn, classifier_params):
+    """The mixup or style-aux step ``config`` asks for, or None.  The style
+    rows are (0, 1, 2) of a dedicated style table, else the vocab rows
+    (4, 3, 6); with ``style_aux_from_batch`` the probe's class comes from
+    ``batch['probe_cls']``."""
+    if config.mixup and config.style_aux:
+        raise ValueError("mixup and style_aux are alternative auxiliary "
+                         "objectives; enable at most one")
+    if not (config.mixup or config.style_aux):
+        return None
+    name = "mixup" if config.mixup else "style_aux"
+    if classifier_params is None:
+        raise ValueError(f"config.{name} needs style_classifier_params (train one: "
+                         "cli/train_classifier --kind small --save)")
+    style_ids = (0, 1, 2) if "style_embed" in params else (4, 3, 6)
+    if config.mixup:
+        return make_hypernet_mixup_steps(tx, classifier_params, alpha=config.mixup_alpha,
+                                         style_ids=style_ids, embed_fn=embed_fn)
+    return make_hypernet_styleaux_steps(
+        tx, classifier_params, alpha=config.style_aux_alpha,
+        style_ids=None if config.style_aux_from_batch else style_ids,
+        embed_fn=embed_fn)
+
+
 class CaptionTrainer:
     def __init__(
         self,
@@ -143,15 +208,14 @@ class CaptionTrainer:
         style_classifier_params=None,
         device: DeviceLike = None,
     ):
+        if mesh is not None and ((config.mixup and config.mixup_split)
+                                 or (config.style_aux and config.style_aux_split)):
+            raise ValueError("mixup_split / style_aux_split are single-device; "
+                             "drop the split or the mesh")
         if mesh is not None:
             raise NotImplementedError(
                 "CaptionTrainer(mesh=...): data parallelism is not ported yet "
-                "(ROADMAP.md queue 1 item 9)")
-        if config.mixup or config.style_aux:
-            raise NotImplementedError(
-                "config.mixup / config.style_aux: the style-classifier objectives "
-                "are not ported yet (ROADMAP.md queue 1 item 6)")
-        del style_classifier_params  # used only by mixup / style_aux
+                "(the ROADMAP.md queue item \"Parallelism\")")
         self.config = config
         self.vocab = vocab
         self.kind = kind
@@ -161,6 +225,7 @@ class CaptionTrainer:
         self.tx = make_optimizer(config.lr, config.grad_clip)
         self.state = create_train_state(params, self.tx, device=self.device)
         self._embed_fn = embed_fn
+        self.style_step = None  # the mixup / style-aux step, when one is set
         if kind == "gru":
             train_step, eval_step = make_gru_steps(
                 self.tx, bf16=config.bf16_compute,
@@ -173,6 +238,10 @@ class CaptionTrainer:
                 unroll=config.scan_unroll,
                 fused_scan=config.fused_scan,
             )
+            self.style_step = style_step = _style_loss_step(
+                self.tx, config, params, embed_fn, style_classifier_params)
+            if style_step is not None:
+                train_step = DrawingStep(style_step, config.seed)
         self._train_step = train_step
         self._eval_step = eval_step
         self._encoder: Optional[CNNEncoder] = None  # made at the first encode

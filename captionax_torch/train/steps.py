@@ -9,6 +9,10 @@ decoding.  Each ``make_*_steps`` returns ``(train_step, eval_step)``:
 ``train_step(state, batch) -> (state, {"train_loss"})`` and
 ``eval_step(params, batch) -> {"val_loss_tf", "val_loss", "logits_tf"}``
 (teacher-forced CE, and free-running CE at ``sample_prob=1.0``).
+``make_hypernet_mixup_steps`` and ``make_hypernet_styleaux_steps`` add a
+style loss, scored by a frozen style classifier, to the hypernet's CE;
+each returns one train step, ``step(state, batch, generator)``
+(:class:`StyleLossStep`).
 
 Batches are dicts: ``features`` [B, R, num_features], ``captions`` [B, T]
 int, and for the hypernet ``style_id`` [] int (one style per batch).  They
@@ -30,10 +34,15 @@ import torch
 from captionax_torch.data.flickr import STYLE_NAMES
 from captionax_torch.interop import to_device
 from captionax_torch.models import decoder as dec
+from captionax_torch.models.classifiers import classifier_soft_apply_fn
 from captionax_torch.models.hypernet import hypernet_apply
 from captionax_torch.models.layers import embedding
 from captionax_torch.ops.train_kernel import fused_teacher_forced_hidden
-from captionax_torch.train.losses import cross_entropy_loss, fused_ce_from_hidden
+from captionax_torch.train.losses import (
+    cross_entropy_loss,
+    fused_ce_from_hidden,
+    mixup_style_target,
+)
 from captionax_torch.train.state import TrainState, tree_leaves, tree_map, tree_unflatten
 
 
@@ -100,14 +109,20 @@ def _tf_ce(decoder_params, batch, pad_id, gru_params=None, bf16=False, remat=Tru
     return fused_ce_from_hidden(decoder_params["fc"], hs, batch["captions"], pad_id)
 
 
-def _value_and_grad(loss_fn, params):
+def _value_and_grad(loss_fn, params, has_aux: bool = False):
     """(loss, gradients) of ``loss_fn(params)``; a tensor the loss does not
-    reach gets a zero gradient, as ``jax.grad`` gives it."""
+    reach gets a zero gradient, as ``jax.grad`` gives it.  With
+    ``has_aux``, ``loss_fn`` returns ``(loss, aux)`` and the result is
+    ``((loss, aux), gradients)``, aux's tensors detached."""
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-    loss = loss_fn(tree_unflatten(params, leaves))
+    out = loss_fn(tree_unflatten(params, leaves))
+    loss, aux = out if has_aux else (out, None)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if gx is None else gx for x, gx in zip(leaves, grads)]
-    return loss.detach(), tree_unflatten(params, grads)
+    grads = tree_unflatten(params, grads)
+    if has_aux:
+        return (loss.detach(), tree_map(lambda x: x.detach(), aux)), grads
+    return loss.detach(), grads
 
 
 def _on_params(params, batch):
@@ -181,3 +196,157 @@ def make_hypernet_steps(tx, pad_id: int = 0, embed_fn: Callable = style_token_em
         return _eval(params["decoder"], batch, pad_id, gru_params=theta)
 
     return _train_step(loss_fn, tx), eval_step
+
+
+# ----------------------------------------------- the style-loss objectives
+def free_run_logits(decoder_params, batch, theta) -> torch.Tensor:
+    """Logits [B, T, V] of the free run at ``sample_prob=1.0``: step t > 0
+    feeds back the argmax of ``log_softmax(logits / 0.5)`` of step t - 1.
+    Every coin passes at that probability, so none is drawn."""
+    T = batch["captions"].shape[1]
+    return _tf_logits(decoder_params, batch, sample_prob=1.0, gru_params=theta,
+                      coins=[0.0] * T)
+
+
+def mixup_rows(style_ids, missing: int) -> Tuple[int, int]:
+    """The two styles a mixup step blends, in list order: missing 0 ->
+    (humour, romantic), 1 -> (factual, romantic), 2 -> (factual, humour)."""
+    s1 = style_ids[1] if missing == 0 else style_ids[0]
+    s2 = style_ids[1] if missing == 2 else style_ids[2]
+    return int(s1), int(s2)
+
+
+def _filled(x, device) -> torch.Tensor:
+    """A host scalar (a float or a CPU tensor) as an f32 0-d tensor filled
+    on ``device``: no copy from the host, which would wait for the card."""
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def mixup_theta(params, style_ids, coeff, missing: int) -> dict:
+    """The GRU theta of ``coeff * emb[s1] + (1 - coeff) * emb[s2]``."""
+    emb = style_table(params)
+    s1, s2 = mixup_rows(style_ids, missing)
+    coeff = _filled(coeff, emb.device)
+    return hypernet_apply(params["hn"], coeff * emb[s1] + (1.0 - coeff) * emb[s2])
+
+
+class StyleLossStep:
+    """A hypernet train step on ``alpha * CE + (1 - alpha) * aux``, where
+    aux scores a free-running caption with a frozen style classifier (the
+    probe).  Subclasses give ``aux_loss`` and its draws.
+
+    The loss is a pure function of the params, the batch and explicit
+    draws (:meth:`loss`); :meth:`apply` takes one step on given draws, and
+    calling the step, ``step(state, batch, generator)``, draws them from
+    ``generator`` (a CPU ``torch.Generator``) first.  The probe reads the
+    free run's soft tokens (the expected embedding), so aux reaches the
+    hypernet; it may be the small or a BERT classifier (dispatched on its
+    params).  Both losses run the per-step recurrence (``_tf_logits``), as
+    captionax builds them on its scan: ``fused_scan`` and ``bf16_compute``
+    do not reach them.  The decoder's own GRU tensors get zero gradient
+    and never move.
+
+    ``style_ids`` are the style rows of the table the model conditions on:
+    the vocab rows (4, 3, 6) (humour is ``<unk>``, as in the reference),
+    or (0, 1, 2) of a dedicated style table.  captionax's ``split=True``
+    (two backward passes, a way round its compiler) has no counterpart:
+    the one backward pass gives the same gradient."""
+
+    def __init__(self, tx, classifier_params, pad_id: int = 0, alpha: float = 0.3,
+                 style_ids=(4, 3, 6), embed_fn: Callable = style_token_embed):
+        self.tx, self.pad_id, self.alpha = tx, pad_id, alpha
+        self.classifier_params = classifier_params
+        self.clf_apply = classifier_soft_apply_fn(classifier_params)
+        self.style_ids = None if style_ids is None else tuple(int(s) for s in style_ids)
+        self.embed_fn = embed_fn
+
+    def theta(self, params, batch) -> dict:
+        return hypernet_apply(params["hn"], self.embed_fn(params, batch))
+
+    def ce_loss(self, params, batch) -> torch.Tensor:
+        logits = _tf_logits(params["decoder"], batch, gru_params=self.theta(params, batch))
+        return cross_entropy_loss(logits, batch["captions"], self.pad_id)
+
+    def probe(self, params, batch, theta) -> torch.Tensor:
+        """The probe's class probabilities [B, C] of the free run on ``theta``."""
+        logits = free_run_logits(params["decoder"], batch, theta)
+        return self.clf_apply(self.classifier_params, torch.softmax(logits, dim=-1))
+
+    def aux_loss(self, params, batch, *draws) -> torch.Tensor:
+        raise NotImplementedError
+
+    def draws(self, generator: torch.Generator) -> tuple:
+        return ()
+
+    def loss(self, params, batch, *draws):
+        """-> (total, (ce, aux))."""
+        ce = self.ce_loss(params, batch)
+        aux = self.aux_loss(params, batch, *draws)
+        return self.alpha * ce + (1.0 - self.alpha) * aux, (ce, aux)
+
+    def value_and_grad(self, params, batch, *draws):
+        """-> (metrics, gradients) of the total loss."""
+        (total, (ce, aux)), grads = _value_and_grad(
+            lambda p: self.loss(p, batch, *draws), params, has_aux=True)
+        return {"train_loss": total, "ce_loss": ce, "style_loss": aux}, grads
+
+    def apply(self, state: TrainState, batch, *draws) -> Tuple[TrainState, Dict]:
+        """One step on explicit draws."""
+        batch = _on_params(state.params, batch)
+        metrics, grads = self.value_and_grad(state.params, batch, *draws)
+        return state.apply_gradients(grads, self.tx), metrics
+
+    def __call__(self, state: TrainState, batch, generator: torch.Generator):
+        return self.apply(state, batch, *self.draws(generator))
+
+
+class MixupStep(StyleLossStep):
+    """The style-mixup loss (the reference's style regulariser): blend two
+    style embeddings by ``coeff``, free run the decoder on the blend's
+    theta, and take ``mean((pred - target)^2)`` against the mixup target.
+    Its draws: ``coeff`` ~ U[0, 1), and ``missing`` in {0, 1, 2}, the style
+    left out of the blend."""
+
+    def draws(self, generator: torch.Generator) -> tuple:
+        coeff = torch.rand((), generator=generator)
+        missing = int(torch.randint(0, 3, (), generator=generator))
+        return coeff, missing
+
+    def aux_loss(self, params, batch, coeff, missing: int) -> torch.Tensor:
+        pred = self.probe(params, batch, mixup_theta(params, self.style_ids, coeff, missing))
+        coeff = _filled(coeff, pred.device)
+        return torch.mean((pred - mixup_style_target(coeff, missing)[None, :]) ** 2)
+
+
+class StyleAuxStep(StyleLossStep):
+    """The style-identification loss (captionax's own term): free run under
+    the batch's own theta and ask the probe to name the style,
+    ``-mean(log(pred[:, cls] + 1e-9))``.  ``cls`` is the index of
+    ``batch['style_id']`` in ``style_ids`` or, with ``style_ids=None``,
+    ``batch['probe_cls']``.  No draws: at ``sample_prob=1.0`` every coin
+    passes."""
+
+    def aux_loss(self, params, batch) -> torch.Tensor:
+        pred = self.probe(params, batch, self.theta(params, batch))
+        if self.style_ids is None:
+            cls = torch.as_tensor(batch["probe_cls"], device=pred.device).long()
+        else:
+            style = torch.as_tensor(batch["style_id"], device=pred.device)
+            cls = torch.argmax(torch.stack([style == s for s in self.style_ids]).to(torch.int32))
+        # pred[:, cls] without reading cls on the host (a wait for the card)
+        return -torch.mean(torch.log(pred.index_select(1, cls.reshape(-1)) + 1e-9))
+
+
+def make_hypernet_mixup_steps(tx, classifier_params, pad_id: int = 0, alpha: float = 0.3,
+                              style_ids=(4, 3, 6),
+                              embed_fn: Callable = style_token_embed) -> MixupStep:
+    """Hypernet training with the style-mixup loss; see :class:`MixupStep`."""
+    return MixupStep(tx, classifier_params, pad_id, alpha, style_ids, embed_fn)
+
+
+def make_hypernet_styleaux_steps(tx, classifier_params, pad_id: int = 0, alpha: float = 0.7,
+                                 style_ids=(4, 3, 6),
+                                 embed_fn: Callable = style_token_embed) -> StyleAuxStep:
+    """Hypernet training with the style-identification loss; see
+    :class:`StyleAuxStep`."""
+    return StyleAuxStep(tx, classifier_params, pad_id, alpha, style_ids, embed_fn)

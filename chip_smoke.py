@@ -45,10 +45,18 @@ caption against a direct decode of the same files), ``serve``'s
 ``--int8-encoder`` (each int8 conv's int32 sums against its plain version,
 the features within captionax's bounds of the f32 encoder), and the
 supervised ``serve`` CLI until two workers have handed over its port
-without a client error.  One line per phase gives the phase's seconds.
+without a client error.  Phase 22 drives the style classifiers and the
+style losses on phase 20's corpus: ``train_classifier --kind small`` and
+``--kind style3`` at BERT-base width (the BERT probe's probabilities on the
+card against the CPU's), then ``train_hypernet --mixup`` on the small
+probe (its first step's fed-back words, loss and gradients on the card
+against the CPU's on the same draws), ``--style-aux`` on the BERT probe
+and ``--mixup --mixup-split`` (read as captionax reads it; the port takes
+the same single step): K4 in the cold featurizes, no K3, and each step's time and parts.  One line
+per phase gives the phase's seconds.
 The line before the last is a JSON ``kernels`` record (K3's and K4's
 entries also carry their launches in that ``fit``, K1's, K2's and K4's
-their launches on phase 21's paths); the last line is
+their launches on phase 21's paths, K4's on phase 22's); the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or a
 failed build raises, and the script exits non-zero without that last line.
 """
@@ -74,13 +82,15 @@ import torch
 import torch.nn.functional as F
 
 from captionax_torch.cli import caption as cli_caption
+from captionax_torch.cli import train_classifier as cli_classifier
 from captionax_torch.cli import evaluate as cli_evaluate
 from captionax_torch.cli import serve as cli_serve
 from captionax_torch.cli import train_gru as cli_gru
 from captionax_torch.cli import train_hypernet as cli_hypernet
 from captionax_torch.core.runtime import StepTimer
-from captionax_torch.core.vocab import SPECIAL_TOKENS, STYLE_TOKENS, Vocab
+from captionax_torch.core.vocab import Vocab
 from captionax_torch.data import native_image
+from captionax_torch.data.seeded_corpus import seeded_corpus, seeded_vocab
 from captionax_torch.data.transforms import preprocess_images
 from captionax_torch.decode.search import NEG_INF, beam_search, greedy, top_k_first
 from captionax_torch.decode.serving import (
@@ -95,6 +105,8 @@ from captionax_torch.decode.serving import (
 from captionax_torch.decode.service import CaptionService, make_http_server
 from captionax_torch.decode.supervise import proc_rss_mb
 from captionax_torch.eval.metrics import ids_to_text
+from captionax_torch.interop import from_jax_params, to_device
+from captionax_torch.models.classifiers import style_classifier_apply, style_classifier_apply_soft
 from captionax_torch.models.decoder import attention_gru_init
 from captionax_torch.models import encoder as tenc
 from captionax_torch.models.encoder import (
@@ -2480,16 +2492,8 @@ def k4_full(enc, images: np.ndarray):
 
 
 def synthetic_vocab(seed: int = 3) -> Vocab:
-    """A 9,684-word vocab from a seed: the special tokens, the style words
-    that ``resolve_style_id`` looks up, then random words."""
-    vocab = Vocab()
-    for tok in SPECIAL_TOKENS + STYLE_TOKENS:
-        vocab.add_word(tok)
-    rs = np.random.RandomState(seed)
-    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    while len(vocab) < V:
-        vocab.add_word("".join(rs.choice(letters, rs.randint(3, 10))))
-    return vocab
+    """A 9,684-word vocab from a seed (``data/seeded_corpus.py``)."""
+    return seeded_vocab(seed, V)
 
 
 def serve_concurrently(svc, images, rows):
@@ -2766,21 +2770,7 @@ def cli_corpus(tmp: str) -> list:
     """A vocab pickle (``synthetic_vocab``'s 9,684 words) and a factual
     caption file (five captions of 8-15 of its words per image) in ``tmp``
     -> the CLIs' data flags."""
-    vocab = synthetic_vocab()
-    vocab_path = os.path.join(tmp, "vocab.pkl")
-    with open(vocab_path, "wb") as f:
-        pickle.dump(vocab, f)
-    rs = np.random.RandomState(20)
-    words = np.array([vocab.i2w[i] for i in range(len(SPECIAL_TOKENS) + len(STYLE_TOKENS),
-                                                  len(vocab))])
-    caps_path = os.path.join(tmp, "factual_train.txt")
-    with open(caps_path, "w") as f:
-        for i in range(CLI_IMAGES):
-            for k in range(5):
-                f.write(f"synthetic_{i}.jpg#{k}\t"
-                        f"{' '.join(rs.choice(words, rs.randint(8, 16)))}\n")
-    return ["--synthetic", "--vocab-path", vocab_path, "--factual-captions", caps_path,
-            "--batch-size", str(CLI_BATCH)]
+    return seeded_corpus(tmp, CLI_IMAGES, CLI_BATCH)
 
 
 def cli_counts() -> dict:
@@ -3632,6 +3622,293 @@ def caption_and_serve(model, enc, base_rss_mb: float) -> dict:
     return {"caption": {k: v[:2] for k, v in caps.items()}, "serve": served, "sup": sup}
 
 
+# ------------------------------------------------------------------ 22: the style classifiers and losses
+STYLE_EPOCHS = {"mixup": 2, "style_aux": 1, "mixup_split": 1}
+FED_BACK_AGREEMENT = 0.99   # fed-back words of the first mixup step, card against CPU
+STYLE_CE_RTOL = 1e-5
+STYLE_LOSS_RTOL = 1e-4
+STYLE_GRAD_SHARE = 1e-3     # of each gradient's largest entry (or of 1e-3 where that is smaller)
+BERT_PROB_TOL = 1e-4
+BERT_LR = 1e-4              # a BERT fine-tuning rate; the CLI's default 5e-3 saturates the probe
+
+
+class ClassifierTimer:
+    """train_classifier's optimizer steps timed on the host clock with a
+    wait for the card before and after each (``ms``)."""
+
+    def __init__(self):
+        self.ms, self._step = [], cli_classifier.classifier_step
+
+    def __enter__(self):
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._step(*args)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        cli_classifier.classifier_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        cli_classifier.classifier_step = self._step
+        return False
+
+
+def train_probe(flags: list, kind: str, path: str, extra=()) -> tuple:
+    """train_classifier --kind ``kind`` --save ``path`` on the card ->
+    (held-out accuracy, ms per step, steps, the run's seconds)."""
+    with ClassifierTimer() as timer:
+        t0 = time.perf_counter()
+        _, acc = cli_classifier.main(flags + ["--kind", kind, "--save", path, *extra])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    require(len(timer.ms) > 1 and os.path.getsize(path) > 0, f"{kind}: {len(timer.ms)} steps")
+    return acc, float(np.median(timer.ms[1:])), len(timer.ms), run_s
+
+
+def style_step_on(step, device):
+    """The same style-loss step with its classifier on ``device``."""
+    return type(step)(step.tx, to_device(step.classifier_params, device), step.pad_id,
+                      step.alpha, step.style_ids, step.embed_fn)
+
+
+def share_of(got, ref) -> float:
+    """max |got - ref| over ref's largest entry (at least 1e-3)."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-3)
+
+
+def check_first_mixup_step(trainer, state0, batch0) -> dict:
+    """The first mixup step's loss and gradients on the card against the
+    port's f32 on the CPU, on the same weights, batch, coeff and missing
+    (drawn as the harness draws them for step 0)."""
+    step = trainer.style_step
+    coeff, missing = step.draws(harness.step_generator(trainer.config.seed, int(state0.step)))
+    cpu = style_step_on(step, "cpu")
+    pc, bc = to_device(state0.params, "cpu"), to_device(batch0, "cpu")
+    with torch.no_grad():
+        words = [tsteps.free_run_logits(p["decoder"], b, tsteps.mixup_theta(
+            p, step.style_ids, coeff, missing))[:, :-1].argmax(-1).cpu()
+            for p, b in ((state0.params, batch0), (pc, bc))]
+    agree = (words[0] == words[1]).float().mean().item()
+    rows_same = (words[0] == words[1]).all(dim=1).float().mean().item()
+    mk, gk = step.value_and_grad(state0.params, batch0, coeff, missing)
+    mp, gp = cpu.value_and_grad(pc, bc, coeff, missing)
+    ce_rel = abs(float(mk["ce_loss"]) - float(mp["ce_loss"])) / abs(float(mp["ce_loss"]))
+    loss_rel = abs(float(mk["train_loss"]) - float(mp["train_loss"])) / abs(float(mp["train_loss"]))
+    grad = max(share_of(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+    say(f"  first mixup step (coeff {float(coeff):.4f}, missing {missing}), card against the "
+        f"port's f32 on the CPU: fed-back words agree {agree:.4f} (rows whole {rows_same:.4f}; "
+        f"bound {FED_BACK_AGREEMENT}), CE relative {ce_rel:.2e} (bound {STYLE_CE_RTOL}), loss "
+        f"relative {loss_rel:.2e}, largest gradient difference {grad:.2e} of its largest "
+        f"entry; style loss card {float(mk['style_loss']):.6f}, CPU {float(mp['style_loss']):.6f}")
+    require(agree >= FED_BACK_AGREEMENT, f"the first mixup step's fed-back words agree on {agree}")
+    require(ce_rel <= STYLE_CE_RTOL, f"the first mixup step's CE: relative {ce_rel}")
+    if agree == 1.0:
+        require(loss_rel <= STYLE_LOSS_RTOL, f"the first mixup step's loss: relative {loss_rel}")
+        require(grad <= STYLE_GRAD_SHARE, f"the first mixup step's gradients: {grad}")
+    return {"agree": agree, "ce_rel": ce_rel, "loss_rel": loss_rel, "grad": grad}
+
+
+def caption_ids(path: str) -> np.ndarray:
+    """The first CLI_BATCH captions of a factual caption file as ids
+    [CLI_BATCH, T_CAP], 0-padded."""
+    vocab = synthetic_vocab()
+    with open(path) as f:
+        lines = [line.split("\t", 1)[1] for line, _ in zip(f, range(CLI_BATCH))]
+    ids = np.zeros((len(lines), T_CAP), np.int32)
+    for i, line in enumerate(lines):
+        enc = vocab.encode(line)[:T_CAP]
+        ids[i, :len(enc)] = enc
+    return ids
+
+
+def check_bert_probe(path: str, ids: np.ndarray) -> float:
+    """The BERT probe's class probabilities on the card against the port's
+    f32 on the CPU, on the same saved weights: on caption ids (hard) and on
+    seeded token distributions (soft, as the style losses feed it)."""
+    with open(path, "rb") as f:
+        saved = pickle.load(f)
+    V = saved["bert"]["word_emb"].shape[0]
+    soft = torch.softmax(torch.randn((len(ids), T_CAP, V), generator=gen(22)) * 4, dim=-1)
+    probs = {"hard": [], "soft": []}
+    for dev in (DEVICE, "cpu"):
+        params = from_jax_params(saved, dev)
+        t = torch.from_numpy(ids).to(dev)
+        with torch.no_grad():
+            probs["hard"].append(style_classifier_apply(params, t, (t != 0).float()).cpu())
+            probs["soft"].append(style_classifier_apply_soft(params, soft.to(dev)).cpu())
+    err = {k: (a - b).abs().max().item() for k, (a, b) in probs.items()}
+    spread = probs["hard"][1].max(dim=-1).values
+    hidden, layers = saved["bert"]["word_emb"].shape[1], len(saved["bert"]["encoder"])
+    say(f"  BERT probe (hidden {hidden}, {layers} layers, {max(hidden // 64, 1)} heads) on "
+        f"{len(ids)} captions: class probabilities on the card against the CPU's f32, max abs "
+        f"difference {err['hard']:.2e} on ids, {err['soft']:.2e} on soft tokens (bound "
+        f"{BERT_PROB_TOL}); the CPU's top probability {spread.min():.4f}-{spread.max():.4f} "
+        f"[{CARD}]")
+    require(max(err.values()) <= BERT_PROB_TOL, f"the BERT probe's probabilities differ: {err}")
+    return max(err.values())
+
+
+def step_parts(state, tx, loss_fn, what: str) -> None:
+    """One train step's parts on the host clock, a sync after each (the
+    loss forward, its backward, the optimizer), after one warm-up step; and
+    the card's busy share of a step (a torch.profiler trace)."""
+    def run():
+        leaves = [x.detach().requires_grad_(True) for x in tree_leaves(state.params)]
+        t = [time.perf_counter()]
+        loss = loss_fn(tree_unflatten(state.params, leaves))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        state.apply_gradients(tree_unflatten(state.params, grads), tx)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip(t, t[1:])]
+
+    run()
+    fwd, bwd, opt = run()
+    wall = fwd + bwd + opt
+    busy = kernel_busy_ms(run)
+    share = (f"card busy {busy:.2f} ms a step" if busy > 0
+             else "card busy time not measured (no device time traced)")
+    say(f"  {what}: loss forward {fwd:.2f} ms, backward {bwd:.2f}, optimizer {opt:.2f} (host "
+        f"clock, a sync after each; {wall:.2f} ms in all); {share} [{CARD}]")
+
+
+QUEUED_STEPS = 8
+
+
+def queued_steps(trainer, state, batch, what: str) -> dict:
+    """QUEUED_STEPS style steps issued back to back with one wait at the
+    end, ms a step: through the harness's ``DrawingStep`` (the step number
+    counted on the host), and with ``int(state.step)`` read before each
+    step (a wait for the card, as a draw from the card's counter takes).
+    Each twice, in the order read, host, host, read, after a warm-up."""
+    step, seed = trainer.style_step, trainer.config.seed
+
+    def host_counted(s):
+        draw = harness.DrawingStep(step, seed)
+        for _ in range(QUEUED_STEPS):
+            s, _ = draw(s, batch)
+
+    def read_each(s):
+        for _ in range(QUEUED_STEPS):
+            s, _ = step(s, batch, harness.step_generator(seed, int(s.step)))
+
+    host_counted(state)
+    ms = {"read": [], "host": []}
+    for name, fn in (("read", read_each), ("host", host_counted), ("host", host_counted),
+                     ("read", read_each)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(state)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / QUEUED_STEPS)
+    say(f"  {what}, {QUEUED_STEPS} steps queued back to back: "
+        + ", ".join(f"{x:.2f}" for x in ms["host"]) + " ms a step with the step counted on "
+        "the host, " + ", ".join(f"{x:.2f}" for x in ms["read"])
+        + f" with state.step read before each [{CARD}]")
+    return ms
+
+
+def style_run(flags: list, name: str, clf: str, extra: list, ckdir: str) -> dict:
+    """train_hypernet with a style loss (SpyTrainer's readings): every
+    step's loss finite, K4 in the cold featurizes, no K3 launch."""
+    SpyTrainer.record = rec = {}
+    reset_cli_counts()
+    t0 = time.perf_counter()
+    hist = cli_hypernet.main(flags + ["--checkpoint-dir", ckdir, "--style-classifier", clf,
+                                      "--max-epochs", str(STYLE_EPOCHS[name]), "--log-every",
+                                      "1", "--run-name", name, *extra])
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    logs = [r for r in logged(os.path.join(ckdir, f"{name}.jsonl")) if "style_loss" in r]
+    require(len(logs) == len(rec["steps"]) > 0 and all(
+        np.isfinite([r["train_loss"], r["ce_loss"], r["style_loss"]]).all() for r in logs),
+        f"{name}: logged losses {logs}")
+    require(all(np.isfinite(h["train_loss_epoch"]) for h in hist.values()), f"{name}: {hist}")
+    fit = rec["fit_counts"]
+    k3 = {op.name: fit[op.name] for op in tk.KERNELS}
+    require(not any(k3.values()), f"{name}: K3 launched in its fit: {k3}")
+    cold = [f for f in rec["featurize"] if f["train_step"] is not None
+            and f["train_step"] < len(rec["steps"]) // STYLE_EPOCHS[name]]
+    require(cold and all(f["k4"] > 0 for f in cold), f"{name}: a cold batch ran no K4")
+    require(sum(fit[op.name] for op in ck.KERNELS) > 0, f"{name}: no K4 launch in its fit")
+    rec["step_ms"] = float(np.median(rec["steps"][1:]))
+    rec["losses"] = logs
+    say(f"  train_hypernet {' '.join(extra)} ({STYLE_EPOCHS[name]} epochs, {len(logs)} steps): "
+        f"{rec['step_ms']:.2f} ms per train step (median of steps 2-{len(logs)}; first "
+        f"{rec['steps'][0]:.1f} ms), the run {rec['seconds']:.2f} s; first/last loss "
+        f"{logs[0]['train_loss']:.4f}/{logs[-1]['train_loss']:.4f} (CE {logs[-1]['ce_loss']:.4f}, "
+        f"style {logs[-1]['style_loss']:.4f}); launches during fit "
+        + ", ".join(f"{k} {v}" for k, v in fit.items()) + f" [{CARD}]")
+    return rec
+
+
+def style_losses() -> dict:
+    """(22) The style classifiers and the style losses as a user runs them,
+    at full width on phase 20's corpus: train_classifier --kind small and
+    --kind style3 (BERT-base), then train_hypernet --mixup on the small
+    probe, --style-aux on the BERT probe and --mixup --mixup-split.  ->
+    K4's launches during the three fits, by chain width."""
+    t_phase = time.perf_counter()
+    by_width: dict = {}
+    with tempfile.TemporaryDirectory(prefix="captionax-style-") as tmp, cli_spies({}, []):
+        data = cli_corpus(tmp) + ["--synthetic-images", str(CLI_IMAGES)]
+        small, bert = os.path.join(tmp, "small.pkl"), os.path.join(tmp, "bert.pkl")
+        clf_flags = data + ["--checkpoint-dir", os.path.join(tmp, "clf"), "--max-epochs", "1"]
+        acc_s, ms_s, n_s, run_s = train_probe(clf_flags, "small", small)
+        say(f"  train_classifier --kind small (E={E}, B={CLI_BATCH}): {ms_s:.3f} ms per step "
+            f"({n_s} steps), held-out accuracy {acc_s:.4f}, the run {run_s:.2f} s [{CARD}]")
+        acc_b, ms_b, n_b, run_b = train_probe(clf_flags, "style3", bert, ("--lr", str(BERT_LR)))
+        say(f"  train_classifier --kind style3 (BERT-base, B={CLI_BATCH}, T={T_CAP}, lr "
+            f"{BERT_LR}): {ms_b:.2f} ms per step ({n_b} steps), held-out accuracy {acc_b:.4f}, "
+            f"the run {run_b:.2f} s [{CARD}]")
+        ids = caption_ids(data[data.index("--factual-captions") + 1])
+        check_bert_probe(bert, ids)
+        with open(bert, "rb") as f:
+            tx = make_optimizer(BERT_LR)
+            state = create_train_state(from_jax_params(pickle.load(f), DEVICE), tx, device=DEVICE)
+        t_ids = torch.from_numpy(ids).to(DEVICE)
+        labels = torch.arange(len(ids), device=DEVICE) % 3
+        step_parts(state, tx, lambda p: cli_classifier._nll(
+            style_classifier_apply(p, t_ids, (t_ids != 0).float()), labels),
+            f"a BERT-base classifier step (B={len(ids)})")
+        del state
+        flags = data + ["--cache-features-device"]
+        runs = {}
+        runs["mixup"] = style_run(flags, "mixup", small, ["--mixup"], os.path.join(tmp, "mix"))
+        mix, (state0, batch0) = runs["mixup"]["trainer"], runs["mixup"]["first"][:2]
+        first = check_first_mixup_step(mix, state0, batch0)
+        draws = mix.style_step.draws(harness.step_generator(mix.config.seed, int(state0.step)))
+        step_parts(state0, mix.tx, lambda p: mix.style_step.loss(p, batch0, *draws)[0],
+                   f"a mixup step (small probe, B={CLI_BATCH})")
+        queued_steps(mix, state0, batch0, f"mixup (small probe, B={CLI_BATCH})")
+        runs["style_aux"] = style_run(flags, "style_aux", bert, ["--style-aux"],
+                                      os.path.join(tmp, "aux"))
+        aux, (state0, batch0) = runs["style_aux"]["trainer"], runs["style_aux"]["first"][:2]
+        step_parts(state0, aux.tx, lambda p: aux.style_step.loss(p, batch0)[0],
+                   f"a style-aux step (BERT-base probe, B={CLI_BATCH})")
+        queued_steps(aux, state0, batch0, f"style-aux (BERT-base probe, B={CLI_BATCH})")
+        runs["mixup_split"] = style_run(flags, "mixup_split", small, ["--mixup", "--mixup-split"],
+                                        os.path.join(tmp, "split"))
+        for rec in runs.values():
+            for w, n in rec["fit_by_width"].items():
+                by_width[w] = by_width.get(w, 0) + n
+    seconds = time.perf_counter() - t_phase
+    say(f"  phase 22 times: small classifier {ms_s:.3f} ms a step, BERT classifier {ms_b:.2f}, "
+        f"mixup {runs['mixup']['step_ms']:.2f}, style-aux (BERT probe) "
+        f"{runs['style_aux']['step_ms']:.2f}, mixup split {runs['mixup_split']['step_ms']:.2f} "
+        f"(B={CLI_BATCH}, T={T_CAP}); the phase {seconds:.2f} s [{CARD}]")
+    return {"by_width": by_width, "first": first}
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -3744,6 +4021,13 @@ def main() -> int:
             if k["replaces"] == BEAM_TPU:
                 k["launches_serve"] = cap["serve"]["bf16"][0][op]
                 k["launches_serve_int8"] = cap["serve"]["int8"][0][op]
+    with Phase("22 the style classifiers and losses: train_classifier (small, BERT-base), "
+               "train_hypernet --mixup, --style-aux, --mixup-split (K4)"):
+        style = style_losses()
+    for k in kernels:
+        if k["source"] == K4_SOURCE:
+            width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
+            k["launches_style_losses"] = style["by_width"].get(width, 0)
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))

@@ -126,7 +126,7 @@ def test_refusals(tmp_path, case):
         "requests_gru": (["--images", str(tmp_path / "imgs"), "--kind", "gru", "--requests",
                           str(reqs)], SystemExit, "--kind hypernet"),
         "mesh_data": (["--images", str(tmp_path / "imgs"), "--mesh-data", "2"],
-                      NotImplementedError, "item 9"),
+                      NotImplementedError, "Parallelism"),
     }[case]
     with pytest.raises(exc, match=match):
         tcap.main(flags + extra)

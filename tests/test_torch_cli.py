@@ -2,8 +2,8 @@
 fixture's sizes (E=H=F=16, ResNet-50, 12 synthetic images, --max-len 10,
 --beam-max-steps 8): ``train_gru`` then ``evaluate`` on its checkpoint,
 ``train_hypernet`` (plain, dedicated style tokens, bf16 on the K3 route,
-warm-started with ``--init-hn``), the options that are not ported yet, and
-the default device.  Then the committed captionax checkpoint
+warm-started with ``--init-hn``), the options that are not ported yet (and
+the style losses without their classifier), and the default device.  Then the committed captionax checkpoint
 ``tests/fixtures/gru_ckpt``, restored with captionax and carried into the
 port's checkpoint format: the port's ``beam_search`` and ``greedy`` on
 captionax's encoder features reproduce ``tests/fixtures/gru_goldens.json``'s
@@ -124,13 +124,15 @@ def test_train_hypernet_init_hn(tmp_path, monkeypatch):
 
 
 RAISES = {
-    "mesh_gru": (train_gru, ["--mesh-data", "2"], NotImplementedError, "item 9"),
-    "mesh_hypernet": (train_hypernet, ["--mesh-data", "2"], NotImplementedError, "item 9"),
-    "mesh_evaluate": (evaluate, ["--mesh-data", "2"], NotImplementedError, "item 9"),
-    "mixup": (train_hypernet, ["--mixup"], NotImplementedError, "item 6"),
-    "style_aux": (train_hypernet, ["--style-aux"], NotImplementedError, "item 6"),
-    "style_classifier": (train_hypernet, ["--style-classifier", "clf.pkl"],
-                         NotImplementedError, "item 6"),
+    "mesh_gru": (train_gru, ["--mesh-data", "2"], NotImplementedError, "Parallelism"),
+    "mesh_hypernet": (train_hypernet, ["--mesh-data", "2"], NotImplementedError,
+                      "Parallelism"),
+    "mesh_evaluate": (evaluate, ["--mesh-data", "2"], NotImplementedError, "Parallelism"),
+    # the style losses are ported: without their classifier they raise
+    "mixup": (train_hypernet, ["--mixup"], SystemExit, "--style-classifier"),
+    "style_aux": (train_hypernet, ["--style-aux"], SystemExit, "--style-classifier"),
+    "style_classifier": (train_hypernet, ["--mixup", "--style-classifier", "no_clf.pkl"],
+                         FileNotFoundError, "no_clf.pkl"),
 }
 
 

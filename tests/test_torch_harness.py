@@ -266,13 +266,17 @@ def test_fit_under_trace_writes_profile(vocabs, tmp_path):
 
 @pytest.mark.parametrize("what", ("mesh", "mixup", "style_aux"))
 def test_unported_options_raise(vocabs, tmp_path, what):
+    """mesh is not ported; mixup and style_aux are, and raise without the
+    classifier that scores them, as captionax's harness refuses them."""
     jv, tv = vocabs
     cfg = tconfig.TrainConfig(checkpoint_dir=str(tmp_path),
                               mixup=what == "mixup", style_aux=what == "style_aux")
-    item = "item 9" if what == "mesh" else "item 6"
-    with pytest.raises(NotImplementedError, match=item):
-        tharness.CaptionTrainer(from_jax_params(jax_model("gru", len(jv)), device="cpu"),
-                                "gru", cfg, tv, mesh=object() if what == "mesh" else None,
+    kind = "gru" if what == "mesh" else "hypernet"
+    exc, match = ((NotImplementedError, "Parallelism") if what == "mesh"
+                  else (ValueError, f"{what} needs style_classifier_params"))
+    with pytest.raises(exc, match=match):
+        tharness.CaptionTrainer(from_jax_params(jax_model(kind, len(jv)), device="cpu"),
+                                kind, cfg, tv, mesh=object() if what == "mesh" else None,
                                 device="cpu")
 
 

@@ -127,7 +127,7 @@ def test_int8_service_calibration(tmp_path):
 
 def test_mesh_data_raises(tmp_path):
     args = tserve.make_serve_parser().parse_args(_args(tmp_path, "--mesh-data", "2"))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="Parallelism"):
         tserve.build_service(args)
 
 
