@@ -1,0 +1,81 @@
+"""Train a plain (non-hypernet) attention-GRU captioner on Conceptual
+Captions.
+
+Port of ``captionax/cli/cc_train_gru.py`` (the reference's
+cc_train_gru.py): the model ignores the domains; this is the single-style
+CC baseline the domain hypernet is compared against.  Images are made from
+their names with ``--synthetic``; otherwise the batches carry none, as in
+captionax.  Runs on the card unless ``--device cpu`` is given.
+
+    python -m captionax_torch.cli.cc_train_gru --synthetic --max-epochs 2
+"""
+
+from __future__ import annotations
+
+from captionax_torch.cli.common import (
+    build_captioner,
+    build_encoder,
+    make_parser,
+    maybe_load_glove,
+    model_generators,
+    parse_configs,
+    resolve_mesh,
+    resolve_vocab,
+)
+from captionax_torch.core.runtime import resolve_device
+from captionax_torch.data.cc import ConceptualCaptionsData, load_cc_captions
+from captionax_torch.data.synthetic import synthetic_image
+from captionax_torch.train.harness import CaptionTrainer
+
+
+def main(argv=None):
+    parser = make_parser(__doc__)
+    parser.add_argument("--encoder-weights", type=str, default="")
+    args = parser.parse_args(argv)
+    model_cfg, train_cfg, data_cfg = parse_configs(args)
+    mesh = resolve_mesh(args)
+    device = resolve_device(args.device)
+
+    vocab = resolve_vocab(data_cfg)
+    model_cfg.vocab_size = len(vocab)
+    rows = load_cc_captions(data_cfg.cc_captions)
+    data = ConceptualCaptionsData(
+        rows, vocab,
+        image_loader=synthetic_image if data_cfg.synthetic else None,
+        max_len=train_cfg.max_len,
+    )
+    print(f"vocab={len(vocab)} rows={len(data)} domains={len(data.domains)}")
+
+    g_model, g_encoder = model_generators(train_cfg.seed)
+    params = build_captioner(model_cfg, vocab, g_model, device)
+    params = maybe_load_glove({"decoder": params}, data_cfg, vocab,
+                              model_cfg.embed_size)["decoder"]
+    encoder_params = build_encoder(model_cfg, g_encoder, args.encoder_weights, device)
+
+    trainer = CaptionTrainer(
+        params, "gru", train_cfg, vocab,
+        encoder_params=encoder_params, run_name=args.run_name,
+        mesh=mesh, device=device,
+    )
+    if args.resume:
+        resumed = trainer.maybe_resume(args.resume if args.resume != "auto" else None)
+        print(f"resumed={resumed}")
+    train_idx, val_idx, test_idx = data.split_by_domain(2, 2, seed=train_cfg.seed)
+    history = trainer.fit(
+        lambda epoch: data.batches(train_cfg.batch_size,
+                                   seed=train_cfg.seed + epoch,
+                                   indices=train_idx),
+        lambda: data.batches(train_cfg.batch_size, seed=0, indices=val_idx,
+                             drop_remainder=False),
+    )
+    res = trainer.test_beam(
+        data.batches(train_cfg.batch_size, seed=0, indices=test_idx,
+                     drop_remainder=False)
+    )
+    trainer.logger.log({f"test_{k}": v for k, v in res.items()})
+    print({k: round(v, 4) for k, v in res.items()})
+    return history
+
+
+if __name__ == "__main__":
+    main()

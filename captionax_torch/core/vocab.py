@@ -8,16 +8,14 @@ tokens ``<pad> <s> </s> <unk>`` at ids 0-3 and the FlickrStyle style words
 ``factual humorous romantic`` at ids 4-6, followed by corpus words in
 first-seen order; factual-corpus words are filtered by min count 2.  Unknown
 lookups map to ``<unk>``.  The shipped ``data/vocab.pkl`` (9,684 entries) can
-be loaded via :func:`load_vocab_pickle`, which installs the import shims the
-reference pickle needs (it was pickled against ``__main__.Vocab``).
+be loaded via :func:`load_vocab_pickle`, which reads its ``Vocab`` (pickled
+against ``__main__.Vocab``), captionax's and the port's as this module's.
 """
 
 from __future__ import annotations
 
 import pickle
 import re
-import sys
-import types
 from collections import Counter
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -123,23 +121,23 @@ def extract_factual_caption_lines(path: str) -> List[str]:
     return out
 
 
-def _install_pickle_shims() -> None:
-    """The shipped vocab.pkl was pickled against ``__main__.Vocab`` (and some
-    checkpoints against ``build_vocab.Vocab``); route both to our class."""
-    main_mod = sys.modules.get("__main__")
-    if main_mod is not None and not hasattr(main_mod, "Vocab"):
-        main_mod.Vocab = Vocab
-    if "build_vocab" not in sys.modules:
-        shim = types.ModuleType("build_vocab")
-        shim.Vocab = Vocab
-        sys.modules["build_vocab"] = shim
+class _VocabUnpickler(pickle.Unpickler):
+    """Reads a vocab pickle of any package: a class named ``Vocab``, from
+    whatever module it was pickled against (``__main__`` for the shipped
+    vocab.pkl, ``build_vocab``, ``captionax.core.vocab``, this module), is
+    read as this module's, so that no other package is imported."""
+
+    def find_class(self, module: str, name: str):
+        if name == "Vocab":
+            return Vocab
+        return super().find_class(module, name)
 
 
 def load_vocab_pickle(path: str) -> Vocab:
-    """Load a reference-format vocab pickle and rewrap it as our Vocab."""
-    _install_pickle_shims()
+    """Load a vocab pickle (the reference's, captionax's or the port's) and
+    rewrap it as our Vocab."""
     with open(path, "rb") as f:
-        raw = pickle.load(f)
+        raw = _VocabUnpickler(f).load()
     vocab = Vocab()
     vocab.w2i = dict(raw.w2i)
     vocab.i2w = {int(k): v for k, v in raw.i2w.items()}

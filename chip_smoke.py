@@ -52,11 +52,25 @@ card against the CPU's), then ``train_hypernet --mixup`` on the small
 probe (its first step's fed-back words, loss and gradients on the card
 against the CPU's on the same draws), ``--style-aux`` on the BERT probe
 and ``--mixup --mixup-split`` (read as captionax reads it; the port takes
-the same single step): K4 in the cold featurizes, no K3, and each step's time and parts.  One line
-per phase gives the phase's seconds.
+the same single step): K4 in the cold featurizes, no K3, and each step's time and parts.
+Phase 23 drives Conceptual Captions and zero-shot transfer on a seeded CC
+corpus (50 domains, 600 captions with an image file each, JPEG and PNG,
+some gray; 10 unseen domains): ``cc_train_hypernet --domain-scheme
+"histograme log" --fused-scan`` on the files (the gray ones through the
+viridis LUT; K3's and K4's kernels in ``fit``, no encoder in the warm
+epoch, the first step's loss against the per-step loop's),
+``test_zero_shot`` on its checkpoint (two unseen domains' tokens against a
+direct decode under their own theta), each of the six domain schemes
+built on the card with its first step's loss and gradients against the
+same step on the CPU, ``train_hyper_combine --style-aux
+--select-sep-margin`` then ``test_all`` (five result sets),
+``cc_train_gru``, ``train_cc`` without ``--fetch``, and ``train_init``
+then ``train_hypernet --init-hn`` on its checkpoint.  One line per phase
+gives the phase's seconds.
 The line before the last is a JSON ``kernels`` record (K3's and K4's
-entries also carry their launches in that ``fit``, K1's, K2's and K4's
-their launches on phase 21's paths, K4's on phase 22's); the last line is
+entries also carry their launches in phase 20's ``fit`` and, as
+``launches_cc``, in phase 23's ``cc_train_hypernet`` ``fit``; K1's, K2's
+and K4's their launches on phase 21's paths, K4's on phase 22's); the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or a
 failed build raises, and the script exits non-zero without that last line.
 """
@@ -82,15 +96,30 @@ import torch
 import torch.nn.functional as F
 
 from captionax_torch.cli import caption as cli_caption
+from captionax_torch.cli import cc_train_gru as cli_cc_gru
+from captionax_torch.cli import cc_train_hypernet as cli_cc_hypernet
 from captionax_torch.cli import train_classifier as cli_classifier
 from captionax_torch.cli import evaluate as cli_evaluate
 from captionax_torch.cli import serve as cli_serve
+from captionax_torch.cli import test_all as cli_test_all
+from captionax_torch.cli import test_zero_shot as cli_zero_shot
+from captionax_torch.cli import train_cc as cli_train_cc
 from captionax_torch.cli import train_gru as cli_gru
+from captionax_torch.cli import train_hyper_combine as cli_combine
 from captionax_torch.cli import train_hypernet as cli_hypernet
+from captionax_torch.cli import train_init as cli_init
+from captionax_torch.core.config import DataConfig, ModelConfig
 from captionax_torch.core.runtime import StepTimer
-from captionax_torch.core.vocab import Vocab
+from captionax_torch.core.vocab import Vocab, load_vocab_pickle
 from captionax_torch.data import native_image
-from captionax_torch.data.seeded_corpus import seeded_corpus, seeded_vocab
+from captionax_torch.data.cc import ConceptualCaptionsData, load_cc_captions
+from captionax_torch.data.domains import DomainEmbedder
+from captionax_torch.data.seeded_corpus import (
+    seeded_cc_corpus,
+    seeded_corpus,
+    seeded_vocab,
+    write_image,
+)
 from captionax_torch.data.transforms import preprocess_images
 from captionax_torch.decode.search import NEG_INF, beam_search, greedy, top_k_first
 from captionax_torch.decode.serving import (
@@ -105,8 +134,12 @@ from captionax_torch.decode.serving import (
 from captionax_torch.decode.service import CaptionService, make_http_server
 from captionax_torch.decode.supervise import proc_rss_mb
 from captionax_torch.eval.metrics import ids_to_text
-from captionax_torch.interop import from_jax_params, to_device
-from captionax_torch.models.classifiers import style_classifier_apply, style_classifier_apply_soft
+from captionax_torch.interop import from_jax_params, to_device, to_numpy_tree
+from captionax_torch.models.classifiers import (
+    small_style_classifier_init,
+    style_classifier_apply,
+    style_classifier_apply_soft,
+)
 from captionax_torch.models.decoder import attention_gru_init
 from captionax_torch.models import encoder as tenc
 from captionax_torch.models.encoder import (
@@ -2787,8 +2820,8 @@ class SpyTrainer(harness.CaptionTrainer):
     """The harness with phase 20's readings: each train step timed on the
     host clock with a sync before and after (and the first step's state,
     batch and loss kept), each featurize timed the same way with the K4
-    launches it made, each test_beam timed, and the K3 and K4 launches of
-    fit alone.  ``record`` is set before each CLI run."""
+    launches it made, each test_beam timed, and fit's seconds and its K3
+    and K4 launches.  ``record`` is set before each CLI run."""
 
     record: dict = {}
 
@@ -2846,8 +2879,10 @@ class SpyTrainer(harness.CaptionTrainer):
     def fit(self, *args, **kwargs):
         before = cli_counts()
         width_before = dict(ck.LAUNCHES_BY_WIDTH)
+        t0 = time.perf_counter()
         out = super().fit(*args, **kwargs)
         torch.cuda.synchronize()
+        self.rec["fit_seconds"] = time.perf_counter() - t0
         self.rec["fit_counts"] = {k: v - before[k] for k, v in cli_counts().items()}
         self.rec["fit_by_width"] = {w: n - width_before.get(w, 0)
                                     for w, n in ck.LAUNCHES_BY_WIDTH.items()}
@@ -2855,22 +2890,22 @@ class SpyTrainer(harness.CaptionTrainer):
 
 
 @contextlib.contextmanager
-def cli_spies(saved: dict, beams: list):
-    """SpyTrainer in the three CLIs; every checkpoint save also keeps a copy
-    of the tree (``saved[step]``); every beam_search of test_beam keeps its
-    tokens and found flags (``beams``)."""
+def cli_spies(saved: dict, beams: list, mods=(cli_gru, cli_hypernet, cli_evaluate)):
+    """SpyTrainer in the CLIs ``mods`` (the three training CLIs); every
+    checkpoint save also keeps a copy of the tree (``saved[step]``); every
+    beam_search of test_beam keeps its features, tokens and found flags
+    (``beams``)."""
     save, search = tckpt.save_checkpoint, harness.beam_search
 
     def saving(directory, step, tree, max_to_keep=1):
         saved[int(step)] = [x.detach().clone() for x in tree_leaves(tree)]
         return save(directory, step, tree, max_to_keep)
 
-    def searching(*args, **kwargs):
-        res = search(*args, **kwargs)
-        beams.append((res.tokens.clone(), res.found.clone()))
+    def searching(decoder, features, *args, **kwargs):
+        res = search(decoder, features, *args, **kwargs)
+        beams.append((features, res.tokens.clone(), res.found.clone()))
         return res
 
-    mods = (cli_gru, cli_hypernet, cli_evaluate)
     tckpt.save_checkpoint, harness.beam_search = saving, searching
     for m in mods:
         m.CaptionTrainer = SpyTrainer
@@ -3005,7 +3040,7 @@ def training_clis() -> dict:
         results = cli_evaluate.main(flags + ["--kind", "hypernet"])
         eval_s = time.perf_counter() - t0
         for i, style in enumerate(CLI_STYLES):
-            (tt, tf), (et, ef) = beams[i], beams[n_train_beams + i]
+            (_, tt, tf), (_, et, ef) = beams[i], beams[n_train_beams + i]
             same = ((tt == et).all(dim=1) & (tf == ef)).float().mean().item()
             got, ref = results[style], trained[style]
             require(all(np.isfinite(float(v)) for v in got.values()), f"evaluate {style}: {got}")
@@ -3089,31 +3124,9 @@ def image_decoder() -> str:
     return route
 
 
-def png_bytes(arr: np.ndarray) -> bytes:
-    """uint8 [h, w] or [h, w, 3] -> a PNG file (filter 0 rows, zlib), for a
-    machine whose decoder is the native library alone."""
-    import struct
-    import zlib
-
-    h, w = arr.shape[:2]
-    color = 2 if arr.ndim == 3 else 0
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-    rows = b"".join(b"\0" + arr[y].tobytes() for y in range(h))
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
-
-
 def write_images(img_dir: str) -> list:
     """CAP_FILES seeded images of mixed sizes, every eighth gray: two thirds
     JPEG and a third PNG where PIL is present, else all PNG."""
-    try:
-        from PIL import Image
-    except ImportError:
-        Image = None
     os.makedirs(img_dir)
     rs = np.random.RandomState(21)
     paths = []
@@ -3121,14 +3134,7 @@ def write_images(img_dir: str) -> list:
         h, w = rs.randint(96, 481, 2)
         arr = rs.randint(0, 256, (h, w, 3), np.uint8)
         arr = arr[..., 0] if i % 8 == 7 else arr
-        jpeg = Image is not None and i % 3 != 2
-        path = os.path.join(img_dir, f"img{i:03d}." + ("jpg" if jpeg else "png"))
-        if Image is None:
-            with open(path, "wb") as f:
-                f.write(png_bytes(arr))
-        else:
-            Image.fromarray(arr).save(path, **({"quality": 90} if jpeg else {}))
-        paths.append(path)
+        paths.append(os.path.join(img_dir, write_image(img_dir, f"img{i:03d}", arr, i % 3 != 2)))
     return paths
 
 
@@ -3909,6 +3915,315 @@ def style_losses() -> dict:
     return {"by_width": by_width, "first": first}
 
 
+# ------------------------------------------------------------------ 23: Conceptual Captions, zero-shot
+# 40 training domains of 12 captions (8 train, 2 val, 2 test each: a domain
+# is one batch of 64 a train epoch, its 8 rows resampled to fill it), 10
+# unseen domains of 8; image sides 96-480, as phase 21's files.  The
+# reference has ~100 domains: at 100 (64-160 px files) the phase took 204 s
+# on the card, and at 50 the 96-480 px files took cc_train_hypernet's run
+# from 31 s to ~60 s (the loader's PIL decodes and host resizes, 64 a train
+# step, in both epochs; a val and a test batch a domain in every run), so
+# the count is cut to keep the phase near two minutes
+CC_DOMAINS = 40
+CC_EPOCHS = 2
+CC_SCHEME = "histograme log"
+CC_SCHEMES = ("one hot", "embedding", "histograme", "histograme log", "histograme tfidf", "JSD")
+CC_LOSS_RTOL = 1e-4    # a scheme's first step on the card against the same step on the CPU
+CC_GRAD_SHARE = 1e-3   # of each gradient's largest entry (share_of)
+CC_DIRECT_SHARE = 0.99  # test_zero_shot's rows equal to a direct decode, as phase 20 judges
+CC_PROBE_SEED = 24
+CC_INIT_STEPS = 200
+CC_MODS = (cli_cc_hypernet, cli_zero_shot, cli_combine, cli_test_all, cli_cc_gru, cli_train_cc,
+           cli_hypernet)
+CC_SEARCHES: list = []  # cli_spies' record of test_beam's decodes in phase 23
+
+
+def cc_loss(params, batch, embed_fn, fused: bool) -> torch.Tensor:
+    """The CC hypernet's train loss: the domain's theta, then the
+    teacher-forced CE (on K3 when ``fused``; the plain version on the CPU)."""
+    theta = hypernet_apply(params["hn"], embed_fn(params, batch))
+    return tsteps._tf_ce(params["decoder"], batch, 0, gru_params=theta, fused=fused)
+
+
+def cli_times(rec: dict, what: str) -> str:
+    """A SpyTrainer run's ms a train step, images/s (a synced step's, and
+    fit's end to end: the loader and validation in it), featurize and
+    test_beam."""
+    steps = rec["steps"]
+    step_ms = float(np.median(steps[1:] or steps))
+    feats = [f for f in rec["featurize"] if f["train_step"] is not None]
+    cold = [f["ms"] for f in feats if f["k4"] > 0]
+    warm = [f["ms"] for f in feats if f["k4"] == 0]
+    beam_ms, batches = sum(rec["test_beam"]), len(rec["searches"])
+    return (f"  {what} times: {step_ms:.2f} ms per train step (median of {len(steps)}; first "
+            f"{steps[0]:.1f} ms), {CLI_BATCH / step_ms * 1e3:.1f} images/s; featurize cold "
+            f"{np.median(cold) if cold else float('nan'):.2f} ms per batch of {CLI_BATCH} "
+            f"({len(cold)}), warm {np.median(warm) if warm else float('nan'):.3f} ms "
+            f"({len(warm)}); test_beam {beam_ms:.1f} ms over {batches} batches "
+            f"({beam_ms / max(batches, 1):.2f} ms a batch); fit {rec['fit_seconds']:.2f} s, "
+            f"{len(steps) * CLI_BATCH / rec['fit_seconds']:.1f} train images/s end to end; "
+            f"the run {rec['seconds']:.2f} s [{CARD}]")
+
+
+def cc_cli(main, argv: list) -> tuple:
+    """A CLI under SpyTrainer with the launch counts reset, its test
+    decodes kept (``rec["searches"]``) -> (its return value, the
+    SpyTrainer record)."""
+    SpyTrainer.record = rec = {}
+    reset_cli_counts()
+    CC_SEARCHES.clear()
+    t0 = time.perf_counter()
+    out = main(argv)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["searches"] = list(CC_SEARCHES)
+    return out, rec
+
+
+def cc_train(flags: list, ckdir: str, n_domains: int) -> dict:
+    """(23.1) cc_train_hypernet on the image files: K3 and K4 in fit, no
+    encoder in the warm epoch, finite losses, the first step's loss against
+    the per-step loop's."""
+    hist, rec = cc_cli(cli_cc_hypernet.main, flags + [
+        "--checkpoint-dir", ckdir, "--domain-scheme", CC_SCHEME, "--fused-scan",
+        "--cache-features-device", "--max-epochs", str(CC_EPOCHS), "--log-every", "1",
+        "--run-name", "phase23"])
+    fit = rec["fit_counts"]
+    say(f"  cc_train_hypernet --domain-scheme {CC_SCHEME!r}, {n_domains} domains, image files, "
+        f"B={CLI_BATCH}, {CC_EPOCHS} epochs, --fused-scan --cache-features-device: launches "
+        "during fit " + ", ".join(f"{k} {v}" for k, v in fit.items())
+        + "; K4 by chain width " + str(rec["fit_by_width"]))
+    for op in tk.KERNELS + ck.KERNELS:
+        require(fit[op.name] > 0, f"{op.name} was not launched during cc_train_hypernet's fit")
+    steps = rec["steps"]
+    require(len(steps) == CC_EPOCHS * n_domains, f"{len(steps)} train steps")
+    feats = [f for f in rec["featurize"] if f["train_step"] is not None]
+    cold = [f for f in feats if f["train_step"] < n_domains]
+    warm = [f for f in feats if f["train_step"] >= n_domains]
+    require(len(warm) == n_domains and all(f["k4"] == 0 for f in warm),
+            "the encoder ran in epoch 2: " + str([f["k4"] for f in warm if f["k4"]]))
+    require(all(f["k4"] > 0 for f in cold), "a cold batch did not run the encoder")
+    losses = [r["train_loss"] for r in logged(os.path.join(ckdir, "phase23.jsonl"))
+              if "train_loss" in r]
+    require(len(losses) == len(steps) and all(np.isfinite(losses)),
+            f"logged train losses: {losses[:8]}")
+    require(all(np.isfinite(h["train_loss_epoch"]) and np.isfinite(h["val_loss_tf"])
+                for h in hist.values()), f"epoch metrics: {hist}")
+    trainer = rec["trainer"]
+    state0, batch0, loss0 = rec["first"]
+    loop, _ = make_hypernet_steps(trainer.tx, embed_fn=trainer._embed_fn, fused_scan=False)
+    loop_loss = float(loop(state0, batch0)[1]["train_loss"])
+    rel = abs(float(loss0) - loop_loss) / abs(loop_loss)
+    say(f"  first step: K3 loss {float(loss0):.6f}, per-step loop {loop_loss:.6f}, relative "
+        f"difference {rel:.2e} (bound {TRAIN_LOSS_RTOL}); train loss epoch 1 "
+        f"{hist[0]['train_loss_epoch']:.4f}, epoch {CC_EPOCHS} "
+        f"{hist[CC_EPOCHS - 1]['train_loss_epoch']:.4f}")
+    require(rel <= TRAIN_LOSS_RTOL, "cc_train_hypernet's first K3 step differs from the loop's")
+    say(cli_times(rec, "cc_train_hypernet"))
+    return rec
+
+
+def cc_zero_shot_test(flags: list, ckdir: str, corpus: dict, vocab) -> dict:
+    """(23.2) test_zero_shot on run 1's checkpoint over the unseen domains:
+    finite metrics, captions completed, and the first two unseen domains'
+    tokens against a direct decode under their own theta."""
+    res, rec = cc_cli(cli_zero_shot.main, flags + [
+        "--checkpoint-dir", ckdir, "--domain-scheme", CC_SCHEME, "--synthetic",
+        "--run-name", "phase23"])
+    searches = rec["searches"]
+    require(all(np.isfinite(float(v)) for v in res.values()) and res["beam_completed"] > 0,
+            f"test_zero_shot: {res}")
+    params = rec["trainer"].params
+    embedder = DomainEmbedder(CC_SCHEME, vocab, corpus["domains"], cap_path=corpus["cc"],
+                              zero_shot_domains=corpus["zero_shot"],
+                              zero_shot_path=corpus["oneshot"])
+    order = [b["domain"] for b in ConceptualCaptionsData(
+        load_cc_captions(corpus["oneshot"]), vocab).batches(
+        CLI_BATCH, seed=0, drop_remainder=False, with_images=False)]
+    require(len(order) == len(searches), f"{len(searches)} decodes for {len(order)} batches")
+    shares = {}
+    with torch.no_grad():
+        for dom in corpus["zero_shot"][:2]:
+            feats, tokens, found = searches[order.index(dom)]
+            value = torch.as_tensor(embedder.host_vector(dom)).to(DEVICE)
+            theta = hypernet_apply(params["hn"], embedder.embed(params["domain_emb"], value))
+            ref = beam_search(params["decoder"], feats, k=rec["trainer"].config.beam_size,
+                              max_steps=rec["trainer"].config.beam_max_steps, gru_params=theta,
+                              device=DEVICE)
+            shares[dom] = ((ref.tokens == tokens).all(dim=1) & (ref.found == found)).float(
+            ).mean().item()
+    say(f"  test_zero_shot over {len(corpus['zero_shot'])} unseen domains ({len(order)} "
+        f"batches): beam_completed {res['beam_completed']}, beam_bleu1 "
+        f"{res.get('beam_bleu1', float('nan')):.4f}, tf_bleu1 {res['tf_bleu1']:.4f}; rows equal "
+        "to a direct decode under the domain's own theta: "
+        + ", ".join(f"{d} {v:.4f}" for d, v in shares.items())
+        + f"; test_beam {sum(rec['test_beam']) / len(searches):.2f} ms a batch [{CARD}]")
+    require(all(v >= CC_DIRECT_SHARE for v in shares.values()),
+            f"test_zero_shot's tokens against a direct decode: {shares}")
+    return res
+
+
+def cc_schemes(corpus: dict, vocab, batch0) -> dict:
+    """(23.3) Each scheme built on the card, then its first train step's
+    loss and gradients (K3) against the same step on the CPU, on the same
+    weights and batch (run 1's first batch under the first domain)."""
+    model_cfg = ModelConfig(vocab_size=len(vocab))
+    try:
+        import sklearn
+        jsd = f"t-SNE (scikit-learn {sklearn.__version__})"
+    except ImportError:
+        jsd = "classical MDS (no scikit-learn here)"
+    say(f"  JSD coordinates on this machine: {jsd}")
+    out = {}
+    for scheme in CC_SCHEMES:
+        data_cfg = DataConfig(cc_captions=corpus["cc"], cc_oneshot_captions=corpus["oneshot"],
+                              domain_scheme=scheme)
+        t0 = time.perf_counter()
+        DomainEmbedder(scheme, vocab, corpus["domains"], cap_path=corpus["cc"])
+        tables_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, embedder, embed_fn = cli_cc_hypernet.build_cc_model_and_embedder(
+            model_cfg, data_cfg, vocab, gen(23), device=DEVICE)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        value = torch.as_tensor(np.asarray(embedder.host_vector(corpus["domains"][0])))
+        batch = {"features": batch0["features"], "captions": batch0["captions"],
+                 "domain_value": value.to(DEVICE)}
+        t0 = time.perf_counter()
+        loss_k, grads_k = tsteps._value_and_grad(lambda p: cc_loss(p, batch, embed_fn, True),
+                                                 params)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        pc, bc = to_device(params, "cpu"), to_device(batch, "cpu")
+        t0 = time.perf_counter()
+        loss_c, grads_c = tsteps._value_and_grad(lambda p: cc_loss(p, bc, embed_fn, True), pc)
+        cpu_s = time.perf_counter() - t0
+        rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+        grad = max(share_of(a, b) for a, b in zip(tree_leaves(grads_k), tree_leaves(grads_c)))
+        out[scheme] = {"tables_s": tables_s, "build_s": build_s, "rel": rel, "grad": grad}
+        say(f"  {scheme!r} (hyper_emb {embedder.hyper_emb}): host tables {tables_s:.2f} s, the "
+            f"model built on the card {build_s:.2f} s; first step loss card {float(loss_k):.6f}, "
+            f"CPU {float(loss_c):.6f}, relative {rel:.2e} (bound {CC_LOSS_RTOL}); largest "
+            f"gradient difference {grad:.2e} of its largest entry (bound {CC_GRAD_SHARE}); the "
+            f"step {card_s:.2f} s on the card (first call), {cpu_s:.2f} s on the CPU [{CARD}]")
+        require(rel <= CC_LOSS_RTOL, f"{scheme}: the first step's loss, relative {rel}")
+        require(grad <= CC_GRAD_SHARE, f"{scheme}: the first step's gradients, {grad}")
+        del params, grads_k, pc, grads_c
+    return out
+
+
+def cc_combine(flags: list, tmp: str, vocab) -> dict:
+    """(23.4) train_hyper_combine --domain-scheme "one hot" --style-aux
+    --select-sep-margin on phase 20's Flickr corpus and the CC file, then
+    test_all on its checkpoint: five finite result sets."""
+    probe = os.path.join(tmp, "probe4.pkl")
+    with open(probe, "wb") as f:
+        pickle.dump(to_numpy_tree(small_style_classifier_init(
+            gen(CC_PROBE_SEED), len(vocab), E, 4, device="cpu")), f)
+    ckdir = os.path.join(tmp, "combine")
+    argv = flags + ["--synthetic-images", str(CLI_IMAGES), "--checkpoint-dir", ckdir,
+                    "--domain-scheme", "one hot", "--cache-features-device"]
+    hist, rec = cc_cli(cli_combine.main, argv + [
+        "--style-aux", "--style-classifier", probe, "--select-sep-margin",
+        "--skip-val-quality", "--max-epochs", "1", "--log-every", "1",
+        "--run-name", "phase23_combine"])
+    logs = [r for r in logged(os.path.join(ckdir, "phase23_combine.jsonl")) if "style_loss" in r]
+    require(len(logs) == len(rec["steps"]) > 0 and all(
+        np.isfinite([r["train_loss"], r["ce_loss"], r["style_loss"]]).all() for r in logs),
+        f"train_hyper_combine: logged losses {logs[:4]}")
+    require(all(np.isfinite(h["train_loss_epoch"]) and np.isfinite(h["val_sep_margin"])
+                for h in hist.values()), f"train_hyper_combine: {hist}")
+    fit = rec["fit_counts"]
+    require(sum(fit[op.name] for op in ck.KERNELS) > 0, "train_hyper_combine: no K4 in fit")
+    say(f"  train_hyper_combine --style-aux --select-sep-margin (one hot, 4-class small probe): "
+        f"{len(logs)} steps, val_sep_margin {hist[0]['val_sep_margin']:.4f}, val_sep_acc "
+        f"{hist[0]['val_sep_acc']:.4f}, train loss {hist[0]['train_loss_epoch']:.4f}; launches "
+        "during fit " + ", ".join(f"{k} {v}" for k, v in fit.items()))
+    say(cli_times(rec, "train_hyper_combine"))
+    results, arec = cc_cli(cli_test_all.main, argv + ["--run-name", "phase23"])
+    require(list(results) == ["factual", "humour", "romantic", "cc", "cc_zero_shot"]
+            and all(np.isfinite(float(v)) for r in results.values() for v in r.values()),
+            f"test_all: {results}")
+    say("  test_all on its checkpoint: " + "; ".join(
+        f"{k} beam_completed {r['beam_completed']}, tf_bleu1 {r['tf_bleu1']:.4f}"
+        for k, r in results.items()) + f"; the run {arec['seconds']:.2f} s [{CARD}]")
+    return rec
+
+
+def cc_others(flags: list, corpus: dict, tmp: str) -> None:
+    """(23.5) cc_train_gru for an epoch, train_cc without --fetch, and
+    train_init then train_hypernet --init-hn on its checkpoint."""
+    hist, rec = cc_cli(cli_cc_gru.main, flags + [
+        "--checkpoint-dir", os.path.join(tmp, "cc_gru"), "--max-epochs", "1", "--fused-scan",
+        "--cache-features-device"])
+    require(all(np.isfinite(h["train_loss_epoch"]) for h in hist.values()), f"cc_train_gru: {hist}")
+    for op in tk.KERNELS:
+        require(rec["fit_counts"][op.name] > 0, f"cc_train_gru: {op.name} not launched")
+    say(f"  cc_train_gru --fused-scan: train loss {hist[0]['train_loss_epoch']:.4f}, "
+        f"val_loss_tf {hist[0]['val_loss_tf']:.4f}")
+    say(cli_times(rec, "cc_train_gru"))
+    hist, rec = cc_cli(cli_train_cc.main, flags + [
+        "--gcc-tsv", corpus["gcc"], "--checkpoint-dir", os.path.join(tmp, "train_cc"),
+        "--max-epochs", "1"])
+    require(all(np.isfinite(h["train_loss_epoch"]) for h in hist.values()), f"train_cc: {hist}")
+    say(f"  train_cc --gcc-tsv (no --fetch: every image the placeholder), {len(rec['steps'])} "
+        f"steps: train loss {hist[0]['train_loss_epoch']:.4f}; the run {rec['seconds']:.2f} s "
+        f"[{CARD}]")
+    init_dir = os.path.join(tmp, "init")
+    t0 = time.perf_counter()
+    distilled = cli_init.main(flags + ["--checkpoint-dir", init_dir,
+                                       "--max-steps", str(CC_INIT_STEPS)])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    saved = tckpt.restore_checkpoint(init_dir)
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(distilled["hn"]),
+                                                        tree_leaves(saved["hn"]))),
+            "train_init's checkpoint does not hold its hypernet")
+    hist, rec = cc_cli(cli_hypernet.main, flags + [
+        "--synthetic-images", str(CLI_GRU_IMAGES), "--checkpoint-dir", os.path.join(tmp, "init_hn"),
+        "--init-hn", init_dir, "--max-epochs", "1"])
+    start = rec["first"][0].params["hn"]
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(start), tree_leaves(saved["hn"]))),
+            "train_hypernet --init-hn did not start from train_init's hypernet")
+    require(all(np.isfinite(h["train_loss_epoch"]) for h in hist.values()),
+            f"train_hypernet --init-hn: {hist}")
+    say(f"  train_init --max-steps {CC_INIT_STEPS}: {init_s:.2f} s; train_hypernet --init-hn "
+        f"on its checkpoint starts from its hypernet exactly: train loss "
+        f"{hist[0]['train_loss_epoch']:.4f}, the run {rec['seconds']:.2f} s [{CARD}]")
+
+
+def cc_zero_shot() -> dict:
+    """(23) Conceptual Captions and zero-shot transfer as a user runs them,
+    at full width on a seeded CC corpus (CC_DOMAINS domains of 12 captions,
+    an image file each; 10 unseen domains of 8): cc_train_hypernet on the files (K3,
+    K4), test_zero_shot, each scheme's first step on the card against the
+    CPU, train_hyper_combine --style-aux --select-sep-margin then test_all,
+    cc_train_gru, train_cc and train_init -> train_hypernet --init-hn.  ->
+    K3's and K4's launches during cc_train_hypernet's fit."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="captionax-cc-") as tmp, \
+            cli_spies({}, CC_SEARCHES, CC_MODS):
+        data = cli_corpus(tmp)
+        t0 = time.perf_counter()
+        corpus = seeded_cc_corpus(tmp, domains=CC_DOMAINS)
+        say(f"  the seeded CC corpus: {len(corpus['domains'])} domains, "
+            f"{len(load_cc_captions(corpus['cc']))} captions and image files, "
+            f"{len(corpus['zero_shot'])} unseen domains, written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        vocab = load_vocab_pickle(data[data.index("--vocab-path") + 1])
+        cc = ["--cc-captions", corpus["cc"], "--cc-oneshot-captions", corpus["oneshot"]]
+        files = [f for f in data if f != "--synthetic"] + cc  # images from the files
+        synthetic = data + cc
+        ckdir = os.path.join(tmp, "cc_hypernet")
+        rec = cc_train(files, ckdir, len(corpus["domains"]))
+        cc_zero_shot_test(files, ckdir, corpus, vocab)
+        cc_schemes(corpus, vocab, rec["first"][1])
+        cc_combine(synthetic, tmp, vocab)
+        cc_others(synthetic, corpus, tmp)
+    say(f"  the CC phase: {time.perf_counter() - t_phase:.2f} s [{CARD}]")
+    return {"counts": rec["fit_counts"], "by_width": rec["fit_by_width"]}
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -4028,6 +4343,16 @@ def main() -> int:
         if k["source"] == K4_SOURCE:
             width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
             k["launches_style_losses"] = style["by_width"].get(width, 0)
+    with Phase("23 Conceptual Captions and zero-shot: cc_train_hypernet (K3, K4), "
+               "test_zero_shot, the six schemes, train_hyper_combine, test_all, cc_train_gru, "
+               "train_cc, train_init"):
+        ccz = cc_zero_shot()
+    for k in kernels:
+        if k["name"] in ccz["counts"]:
+            k["launches_cc"] = ccz["counts"][k["name"]]
+        elif k["source"] == K4_SOURCE:
+            width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
+            k["launches_cc"] = ccz["by_width"].get(width, 0)
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))

@@ -166,6 +166,50 @@ def _entry_from_optax_state():
     from_optax_state(NS(hyperparams={"learning_rate": 1e-3}, inner_state=finite))
 
 
+def _cc_cli(module: str, *extra):
+    """A CC CLI's main at the fixture's flags, without --device."""
+    import importlib
+
+    from tests.fixtures.gru_fixture import flags
+
+    importlib.import_module(f"captionax_torch.cli.{module}").main(
+        flags("unused") + ["--cc-captions", str(ROOT / "no_such_cc.txt"), *extra])
+
+
+def _entry_cc_train_hypernet():
+    _cc_cli("cc_train_hypernet")
+
+
+def _entry_test_zero_shot():
+    _cc_cli("test_zero_shot")
+
+
+def _entry_cc_train_gru():
+    _cc_cli("cc_train_gru")
+
+
+def _entry_train_cc():
+    _cc_cli("train_cc", "--gcc-tsv", str(ROOT / "no_such.tsv"))
+
+
+def _entry_train_hyper_combine():
+    _cc_cli("train_hyper_combine")
+
+
+def _entry_test_all():
+    _cc_cli("test_all")
+
+
+def _entry_train_init():
+    _cc_cli("train_init")
+
+
+def _entry_domain_embedder_init_params():
+    from captionax_torch.data.domains import DomainEmbedder
+
+    DomainEmbedder("embedding", None, ["a", "b"]).init_params(torch.Generator())
+
+
 ENTRY_POINTS = {name[7:]: fn for name, fn in globals().items() if name.startswith("_entry_")}
 
 
