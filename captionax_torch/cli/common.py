@@ -1,7 +1,6 @@
 """Shared CLI plumbing: args, vocab/data resolution, model construction.
 
-Port of the parts of ``captionax/cli/common.py`` that ``train_gru``,
-``train_hypernet``, ``evaluate``, ``caption`` and ``serve`` use.  Every
+Port of ``captionax/cli/common.py``.  Every
 entry point takes real flags instead of hard-coded paths.  A real image
 directory (``--img-dir``) is read through ``data/native_image.py``'s file
 loader; when the image corpus isn't mounted (``--synthetic``, or missing
@@ -197,3 +196,41 @@ def maybe_load_glove(params, data_cfg: DataConfig, vocab, embed_size: int):
         target["embed"] = glove_embedding_matrix(
             data_cfg.glove_path, vocab, embed_size, device=target["embed"].device)
     return params
+
+
+def make_encoder(encoder_params, regions: bool = True, device: DeviceLike = None):
+    """images uint8 [B, H, W, 3] -> the ResNet's region features [B, R,
+    2048], or (``regions=False``) their mean [B, 2048]; the chains run on
+    K4, packed once here."""
+    from captionax_torch.data.transforms import preprocess_images
+    from captionax_torch.models.encoder import CNNEncoder
+
+    dev = resolve_device(device)
+    enc = CNNEncoder(encoder_params, device=dev)
+    if regions:
+        return lambda images: enc(preprocess_images(images, dev))
+    return lambda images: enc(preprocess_images(images, dev)).mean(dim=1)
+
+
+def make_feature_fn(encode, train_cfg: TrainConfig, device: DeviceLike = None):
+    """Per-batch featurizer for the CLIs that do not run through
+    ``CaptionTrainer`` (``train_lstm``): ``encode(batch["images"])``, or,
+    with ``--cache-features`` / ``--cache-features-device``, the harness's
+    ``FeatureCache`` keyed by the batch's ``indices`` (each image encoded
+    once; the device variant serves warm batches from an f16 table on the
+    card).  -> f32 features on ``device``."""
+    if not (train_cfg.cache_features or train_cfg.cache_features_device):
+        return lambda batch: encode(batch["images"])
+    from captionax_torch.train.harness import FeatureCache
+
+    dev = resolve_device(device)
+    cache = FeatureCache(lambda _p, imgs: encode(imgs), {},
+                         device=train_cfg.cache_features_device)
+
+    def feature_fn(batch):
+        if "indices" in batch:
+            feats = cache.featurize(lambda: batch["images"], batch["indices"])
+            return torch.as_tensor(feats).to(dev)
+        return encode(batch["images"])
+
+    return feature_fn

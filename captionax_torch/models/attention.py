@@ -1,8 +1,9 @@
 """Bahdanau additive attention over dicts of tensors.
 
-Port of ``captionax/models/attention.py`` (the gated attention comes
-later): scores ``v_a . tanh(W_a f + U_a h)`` softmaxed over regions, and
-the context is the weighted sum of the features."""
+Port of ``captionax/models/attention.py``: scores ``v_a . tanh(W_a f +
+U_a h)`` softmaxed over regions, and the context is the weighted sum of the
+features; and the Show-Attend-Tell ReLU attention of the LSTM captioners,
+``full_att . relu(encoder_att f + decoder_att h)``."""
 
 from __future__ import annotations
 
@@ -33,3 +34,24 @@ def bahdanau_attention(params: Dict, features: torch.Tensor,
     weights = torch.softmax(scores, dim=1)
     context = torch.sum(weights * features, dim=1)
     return context, weights[..., 0]
+
+
+def gated_attention_init(generator: torch.Generator, encoder_dim: int, decoder_dim: int,
+                         attention_dim: int, device: DeviceLike = None) -> Dict:
+    """The Show-Attend-Tell attention of the LSTM path."""
+    return {
+        "encoder_att": linear_init(generator, encoder_dim, attention_dim, device=device),
+        "decoder_att": linear_init(generator, decoder_dim, attention_dim, device=device),
+        "full_att": linear_init(generator, attention_dim, 1, device=device),
+    }
+
+
+def gated_attention(params: Dict, encoder_out: torch.Tensor,
+                    hidden: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """encoder_out [B, R, F], hidden [B, H] -> (context [B, F], alpha [B, R])."""
+    att1 = linear(params["encoder_att"], encoder_out)
+    att2 = linear(params["decoder_att"], hidden)[:, None]
+    att = linear(params["full_att"], torch.relu(att1 + att2))[..., 0]
+    alpha = torch.softmax(att, dim=1)
+    context = torch.sum(encoder_out * alpha[..., None], dim=1)
+    return context, alpha

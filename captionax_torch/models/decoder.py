@@ -1,16 +1,23 @@
-"""The attention-GRU caption decoder over dicts of tensors.
+"""The caption decoders over dicts of tensors.
 
-Port of the attention-GRU part of ``captionax/models/decoder.py``: init,
+Port of ``captionax/models/decoder.py``.  The attention GRU: init,
 ``encode_features``, ``init_hidden`` (with the extra GRU layers applied
 once to the initial state, as the reference does), ``decode_step`` and the
 teacher-forced scoring passes of training, ``teacher_forced_hidden`` and
-``teacher_forced``.  Their time loop is a Python loop over the steps.
+``teacher_forced``.  The LSTM captioners: the attention LSTM
+(``attention_lstm_init``, ``lstm_init_hidden``, ``lstm_decode_step``,
+``lstm_teacher_forced``, ``lstm_greedy``) over the raw region features,
+and the plain seq2seq LSTM (``seq_lstm_init``, ``seq_lstm_forward``) with
+the global feature as its first token.  Their time loops are Python loops
+over the steps.
 
 Reference quirks kept: the teacher-forced step t=0 consumes a zeroed
 embedding and step t>0 the embedding of ``captions[:, t-1]``; scheduled
 sampling draws one coin per step for the whole batch and feeds back the
 argmax of ``log_softmax(prev_logits / sample_temp)``; extra GRU layers run
-after the cell at every step.
+after the cell at every step.  The attention LSTM's teacher-forced pass
+has the same zeroed step-0 embedding, but its greedy decode starts from
+token 0's own embedding; the seq2seq LSTM drops the caption's last token.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from captionax_torch.models.layers import (
     linear_init,
     mlp_init,
 )
-from captionax_torch.models.rnn import gru_cell, gru_cell_init
+from captionax_torch.models.rnn import gru_cell, gru_cell_init, lstm_cell, lstm_cell_init
 
 Params = Dict[str, object]
 
@@ -216,3 +223,128 @@ def teacher_forced(
         all_logits.append(logits)
         attns.append(attn)
     return torch.stack(all_logits, dim=1), torch.stack(attns, dim=1)
+
+
+# ====================================================== attention-LSTM ===
+def attention_lstm_init(
+    generator: torch.Generator,
+    num_features: int,
+    embed_dim: int,
+    hidden_dim: int,
+    vocab_size: int,
+    dtype=torch.float32,
+    device: DeviceLike = None,
+) -> Params:
+    """The AttentionLstm: attends over the raw encoder features (no
+    feature_fc); same keys and shapes as captionax's."""
+    g = generator
+    return {
+        "embed": embedding_init(g, vocab_size, embed_dim, dtype, device),
+        "lstm": lstm_cell_init(g, embed_dim + num_features, hidden_dim, dtype, device),
+        "fc": linear_init(g, hidden_dim, vocab_size, dtype, device),
+        "attention": bahdanau_init(g, num_features, hidden_dim, device=device),
+        "init_h": linear_init(g, num_features, hidden_dim, dtype, device),
+        "init_c": linear_init(g, num_features, hidden_dim, dtype, device),
+    }
+
+
+def lstm_init_hidden(params: Params, features: torch.Tensor):
+    mean = torch.mean(features, dim=1)
+    return linear(params["init_h"], mean), linear(params["init_c"], mean)
+
+
+def lstm_decode_step(params: Params, word_embed, hc, features):
+    """attention -> LSTM -> fc.  -> ((h', c'), logits [B, V], attn)."""
+    context, attn = bahdanau_attention(params["attention"], features, hc[0])
+    x = torch.cat([word_embed, context], dim=-1)
+    h, c = lstm_cell(params["lstm"], x, hc)
+    return (h, c), linear(params["fc"], h), attn
+
+
+def lstm_teacher_forced(
+    params: Params,
+    features: torch.Tensor,
+    captions: torch.Tensor,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    keep: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced AttentionLstm pass (step 0 a zeroed embedding) ->
+    (logits [B, T, V], attn [B, T, R]).  With ``dropout_rate > 0`` the
+    hidden state entering ``fc`` is scaled by ``keep / (1 - rate)``:
+    ``keep`` is the [T, B, H] keep-mask when given, else drawn from
+    ``generator`` (u < 1 - rate); without either there is no dropout."""
+    hc = lstm_init_hidden(params, features)
+    B, T = captions.shape
+    E = params["embed"].shape[1]
+    H = params["init_h"]["b"].shape[0]
+    dev = features.device
+    zero_embed = torch.zeros((B, E), dtype=torch.float32, device=dev)
+    embeds = embedding(params["embed"], captions.long())
+    drop_scale = None
+    if dropout_rate > 0.0 and (keep is not None or generator is not None):
+        if keep is None:
+            keep = torch.rand((T, B, H), generator=generator,
+                              device=generator.device) < 1.0 - dropout_rate
+        drop_scale = keep.to(dev, torch.float32) / (1.0 - dropout_rate)
+    logits, attns = [], []
+    for t in range(T):
+        word_embed = zero_embed if t == 0 else embeds[:, t - 1]
+        context, attn = bahdanau_attention(params["attention"], features, hc[0])
+        x = torch.cat([word_embed, context], dim=-1)
+        hc = lstm_cell(params["lstm"], x, hc)
+        h = hc[0] if drop_scale is None else hc[0] * drop_scale[t]
+        logits.append(linear(params["fc"], h))
+        attns.append(attn)
+    return torch.stack(logits, dim=1), torch.stack(attns, dim=1)
+
+
+def lstm_greedy(
+    params: Params,
+    features: torch.Tensor,
+    max_len: int = 30,
+    end_id: int = 2,
+) -> torch.Tensor:
+    """Batched greedy decode of the AttentionLstm: start token 0 with its
+    embedding (not zeroed), argmax feedback, stop on ``end_id``.  -> ids
+    [B, max_len] int32; finished rows emit 0."""
+    hc = lstm_init_hidden(params, features)
+    B = features.shape[0]
+    tok = torch.zeros((B,), dtype=torch.long, device=features.device)
+    alive = torch.ones((B,), dtype=torch.bool, device=features.device)
+    out = []
+    for _ in range(max_len):
+        hc, logits, _ = lstm_decode_step(params, embedding(params["embed"], tok), hc, features)
+        tok = torch.argmax(logits, dim=-1)
+        out.append(torch.where(alive, tok, torch.zeros_like(tok)))
+        alive = alive & (tok != end_id)
+    return torch.stack(out, dim=1).to(torch.int32)
+
+
+# ==================================================== plain seq2seq LSTM =
+def seq_lstm_init(generator: torch.Generator, embed_dim: int, hidden_dim: int,
+                  vocab_size: int, dtype=torch.float32, device: DeviceLike = None) -> Params:
+    """DecoderLstm: the global image feature as the first input token."""
+    g = generator
+    return {
+        "embed": embedding_init(g, vocab_size, embed_dim, dtype, device),
+        "lstm": lstm_cell_init(g, embed_dim, hidden_dim, dtype, device),
+        "fc": linear_init(g, hidden_dim, vocab_size, dtype, device),
+    }
+
+
+def seq_lstm_forward(params: Params, feature: torch.Tensor,
+                     captions: torch.Tensor) -> torch.Tensor:
+    """feature [B, E], captions [B, T] -> logits [B, T, V].  The inputs are
+    [feature, embed(cap[0]), ..., embed(cap[T-2])]: the last caption token
+    is dropped."""
+    embeds = embedding(params["embed"], captions[:, :-1].long())
+    inputs = torch.cat([feature[:, None, :], embeds], dim=1)
+    B, T, _ = inputs.shape
+    H = params["fc"]["w"].shape[0]
+    hc = (torch.zeros((B, H), device=feature.device), torch.zeros((B, H), device=feature.device))
+    hs = []
+    for t in range(T):
+        hc = lstm_cell(params["lstm"], inputs[:, t], hc)
+        hs.append(hc[0])
+    return linear(params["fc"], torch.stack(hs, dim=1))

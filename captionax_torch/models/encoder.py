@@ -18,7 +18,8 @@ applies scale and bias in bf16; K4, like captionax's own ``fused_stage``,
 applies them in f32 and rounds once.  In bf16 the port therefore matches
 the JAX composition stem -> XLA first blocks -> ``fused_stage`` closely and
 captionax's ``resnet_apply`` to bf16 tolerance; in f32 the two agree to the
-order of sums.  The ``encoder_lstm_*`` encoders are not ported yet.
+order of sums.  :func:`encoder_lstm_apply` (the LSTM captioners' global
+encoder) runs the same trunk, then a linear layer and BatchNorm1d.
 
 The int8 encoder (:func:`resnet_quantize`, :func:`resnet_calibrate`,
 :func:`resnet_apply_int8`, :func:`encoder_cnn_int8`) keeps captionax's
@@ -347,6 +348,52 @@ def encoder_pooled(params: Dict, images: torch.Tensor, size: int = 14) -> torch.
     """Encoder semantics: the ResNet trunk (bf16, as captionax's default)
     and an adaptive pool to (size, size) -> [B, size, size, 2048]."""
     return adaptive_avg_pool(resnet_apply(params, images), (size, size))
+
+
+# ------------------------------------------------- EncoderLstm (global) --
+def encoder_lstm_init(generator: torch.Generator, embed_size: int, depth: int = 50,
+                      device: DeviceLike = None) -> Dict:
+    """ResNet trunk, a trainable Linear(2048, E) (weight N(0, 0.02), bias 0)
+    and BatchNorm1d (gamma 1, beta 0)."""
+    dev = resolve_device(device)
+    w = torch.randn((512 * EXPANSION, embed_size), generator=generator) * 0.02
+    return {
+        "resnet": resnet_init(generator, depth, device=dev),
+        "embed": {"w": w.to(dev), "b": torch.zeros((embed_size,), device=dev)},
+        "bn": {"gamma": torch.ones((embed_size,), device=dev),
+               "beta": torch.zeros((embed_size,), device=dev)},
+    }
+
+
+def encoder_lstm_apply(
+    params: Dict,
+    images: torch.Tensor,
+    train: bool = True,
+    running_stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    momentum: float = 0.01,
+    eps: float = 1e-5,
+    compute_dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """-> ([B, E] feature, updated running stats).  Training normalizes by
+    the batch's mean and biased variance and moves the running stats by
+    ``momentum`` (the variance unbiased, as BatchNorm1d); eval normalizes
+    by the running stats."""
+    fmap = resnet_apply(params["resnet"], images, compute_dtype)
+    pooled = fmap.mean(dim=(1, 2))
+    feat = pooled @ params["embed"]["w"] + params["embed"]["b"]
+    if running_stats is None:
+        running_stats = (torch.zeros_like(feat[0]), torch.ones_like(feat[0]))
+    r_mean, r_var = running_stats
+    if train:
+        mean = feat.mean(dim=0)
+        var = feat.var(dim=0, unbiased=False)
+        n = feat.shape[0]
+        r_mean = (1 - momentum) * r_mean + momentum * mean
+        r_var = (1 - momentum) * r_var + momentum * var * n / max(n - 1, 1)
+    else:
+        mean, var = r_mean, r_var
+    out = (feat - mean) / torch.sqrt(var + eps)
+    return out * params["bn"]["gamma"] + params["bn"]["beta"], (r_mean, r_var)
 
 
 def from_torch_state_dict(state_dict, depth: int = 152, eps: float = 1e-5,

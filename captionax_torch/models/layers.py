@@ -24,8 +24,9 @@ Params = Dict[str, object]
 
 def uniform(generator: torch.Generator, shape, bound: float,
             device: DeviceLike = None, dtype=torch.float32) -> torch.Tensor:
-    """U(-bound, bound) drawn on the host from ``generator``."""
-    x = torch.rand(shape, generator=generator, dtype=dtype) * (2 * bound) - bound
+    """U(-bound, bound) drawn on the host from ``generator``.  The scaling is
+    done in place: the host holds one copy of the tensor, however large."""
+    x = torch.rand(shape, generator=generator, dtype=dtype).mul_(2 * bound).sub_(bound)
     return x.to(resolve_device(device))
 
 

@@ -16,6 +16,18 @@ operations:
 
 The update is branch-free (``torch.where`` on a device flag), so a step
 never waits on the host to learn whether its gradients were finite.
+
+Memory.  The finite check, the moments, the update and its addition to
+the parameters run in chunked passes, :data:`CHUNK` elements of a leaf at
+a time, each element through the same expressions in the same order as a
+whole-tree pass, so the results are bit-equal to it.  The global norm
+keeps its per-leaf ``torch.sum(x * x)``: a sum over chunks
+would add in another order.  With ``donate=True`` (JAX's buffer donation)
+the step writes the moments and the parameters in place and the updates
+into the gradients' storage, so the old state and the gradients are
+consumed; its temporaries are then one chunk's, and one leaf's square
+inside the norm, at most.  Without it the new state is made of new
+tensors, and the old state stays as it was.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from captionax_torch.interop import to_device
 
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
 MAX_CONSECUTIVE_ERRORS = 100
+CHUNK = 1 << 28  # elements of a leaf one optimizer pass takes at a time
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -42,20 +55,21 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def _unflatten(t, it) -> Any:
+    if isinstance(t, dict):
+        out = {k: _unflatten(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_unflatten(v, it) for v in t)
+    return next(it)
+
+
 def tree_unflatten(like, leaves) -> Any:
     """The tree of ``like``'s structure holding ``leaves`` (in the order of
-    :func:`tree_leaves`)."""
-    it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-
-    return build(like)
+    :func:`tree_leaves`).  No closure: a recursive inner function would be
+    a reference cycle holding ``leaves`` (a step's gradients) until the
+    garbage collector ran."""
+    return _unflatten(like, iter(leaves))
 
 
 def tree_map(fn, *trees) -> Any:
@@ -76,15 +90,28 @@ class OptState(NamedTuple):
     adam: AdamState
 
 
+def _chunked(*tensors):
+    """Matching :data:`CHUNK`-element pieces of same-shaped tensors, as
+    writable views; tensors that are not all contiguous come whole."""
+    if not all(t.is_contiguous() for t in tensors):
+        yield tensors
+        return
+    flat = [t.view(-1) for t in tensors]
+    for i in range(0, tensors[0].numel(), CHUNK):
+        yield tuple(f[i:i + CHUNK] for f in flat)
+
+
 class Optimizer:
     """Adam with global-norm clipping, the non-finite skip and an injected
-    learning rate; ``init`` and ``update`` as an optax transform has them."""
+    learning rate; ``init`` and ``update`` as an optax transform has them.
+    ``donate``: see the module's docstring."""
 
     def __init__(self, learning_rate: float, clip_norm: float = 5.0,
-                 skip_nonfinite: bool = True):
+                 skip_nonfinite: bool = True, donate: bool = False):
         self.learning_rate = learning_rate
         self.clip_norm = clip_norm
         self.skip_nonfinite = skip_nonfinite
+        self.donate = donate
 
     def init(self, params) -> OptState:
         dev = tree_leaves(params)[0].device
@@ -102,7 +129,8 @@ class Optimizer:
         g = tree_leaves(grads)
         dev = g[0].device
         if self.skip_nonfinite:
-            finite = torch.stack([torch.isfinite(x).all() for x in g]).all()
+            finite = torch.stack([torch.isfinite(c).all() for x in g
+                                  for (c,) in _chunked(x)]).all()
             notfinite = torch.where(finite, torch.zeros_like(state.notfinite_count),
                                     state.notfinite_count + 1)
             ok = finite | (notfinite > MAX_CONSECUTIVE_ERRORS)
@@ -110,28 +138,40 @@ class Optimizer:
         else:
             ok = torch.ones((), dtype=torch.bool, device=dev)
             notfinite, total = state.notfinite_count, state.total_notfinite
-        # clip_by_global_norm
+        # clip_by_global_norm: the norm from whole-leaf sums, one leaf at a time
         norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
         below = norm < self.clip_norm
-        g = [torch.where(below, x, (x / norm.to(x.dtype)) * self.clip_norm) for x in g]
-        # scale_by_adam
+        # scale_by_adam's bias corrections
         adam = state.adam
-        mu = [(1 - B1) * x + B1 * m for x, m in zip(g, tree_leaves(adam.mu))]
-        nu = [(1 - B2) * (x * x) + B2 * v for x, v in zip(g, tree_leaves(adam.nu))]
         count = adam.count + 1
         bc1 = 1 - torch.pow(torch.tensor(B1, dtype=torch.float32, device=dev), count)
         bc2 = 1 - torch.pow(torch.tensor(B2, dtype=torch.float32, device=dev), count)
         lr = state.hyperparams["learning_rate"]
-        upd = [(m / bc1.to(m.dtype)) / (torch.sqrt(v / bc2.to(v.dtype) + EPS_ROOT) + EPS)
-               for m, v in zip(mu, nu)]
-        upd = [-lr * u for u in upd]
-        # apply_if_finite: a dropped step moves nothing and keeps the state
-        keep = lambda new, old: [torch.where(ok, a, b) for a, b in zip(new, old)]
-        new_adam = AdamState(
-            torch.where(ok, count, adam.count),
-            tree_unflatten(adam.mu, keep(mu, tree_leaves(adam.mu))),
-            tree_unflatten(adam.nu, keep(nu, tree_leaves(adam.nu))))
-        upd = [torch.where(ok, u, torch.zeros_like(u)) for u in upd]
+        mu, nu = tree_leaves(adam.mu), tree_leaves(adam.nu)
+        if self.donate:
+            new_mu, new_nu = mu, nu
+            upd = [x if x.dtype == torch.promote_types(x.dtype, m.dtype)
+                   else torch.empty_like(x, dtype=torch.promote_types(x.dtype, m.dtype))
+                   for x, m in zip(g, mu)]
+        else:
+            new_mu = [torch.empty_like(m) for m in mu]
+            new_nu = [torch.empty_like(v) for v in nu]
+            upd = [torch.empty_like(x, dtype=torch.promote_types(x.dtype, m.dtype))
+                   for x, m in zip(g, mu)]
+        for leaf in zip(g, mu, nu, new_mu, new_nu, upd):
+            for x, m, v, m_out, v_out, u_out in _chunked(*leaf):
+                x = torch.where(below, x, (x / norm.to(x.dtype)) * self.clip_norm)
+                m_new = (1 - B1) * x + B1 * m
+                v_new = (1 - B2) * (x * x) + B2 * v
+                u = (m_new / bc1.to(m_new.dtype)) / (
+                    torch.sqrt(v_new / bc2.to(v_new.dtype) + EPS_ROOT) + EPS)
+                u = -lr * u
+                # apply_if_finite: a dropped step moves nothing and keeps the state
+                m_out.copy_(torch.where(ok, m_new, m))
+                v_out.copy_(torch.where(ok, v_new, v))
+                u_out.copy_(torch.where(ok, u, torch.zeros_like(u)))
+        new_adam = AdamState(torch.where(ok, count, adam.count),
+                             tree_unflatten(adam.mu, new_mu), tree_unflatten(adam.nu, new_nu))
         return (tree_unflatten(grads, upd),
                 OptState(state.hyperparams, notfinite, total, new_adam))
 
@@ -142,17 +182,24 @@ class TrainState(NamedTuple):
     step: torch.Tensor
 
     def apply_gradients(self, grads, tx: Optimizer) -> "TrainState":
+        """The state after one step.  With ``tx.donate`` this state's
+        parameters and moments, and ``grads``, are overwritten."""
         updates, new_opt = tx.update(grads, self.opt_state, self.params)
+        ps, us = tree_leaves(self.params), tree_leaves(updates)
+        out = ps if tx.donate else [torch.empty_like(p) for p in ps]
         with torch.no_grad():
-            params = tree_map(lambda p, u: (p + u).to(p.dtype), self.params, updates)
-        return TrainState(params, new_opt, self.step + 1)
+            for leaf in zip(ps, us, out):
+                for p, u, o in _chunked(*leaf):
+                    o.copy_(p + u)
+        return TrainState(tree_unflatten(self.params, out), new_opt, self.step + 1)
 
 
 def make_optimizer(learning_rate: float = 5e-3, clip_norm: float = 5.0,
-                   skip_nonfinite: bool = True) -> Optimizer:
+                   skip_nonfinite: bool = True, donate: bool = False) -> Optimizer:
     """Adam + global-norm clip with an injectable learning rate;
-    ``skip_nonfinite`` drops a step with NaN or infinite gradients."""
-    return Optimizer(learning_rate, clip_norm, skip_nonfinite)
+    ``skip_nonfinite`` drops a step with NaN or infinite gradients;
+    ``donate`` updates the state in place."""
+    return Optimizer(learning_rate, clip_norm, skip_nonfinite, donate)
 
 
 def create_train_state(params, tx: Optimizer, step: int = 0,

@@ -65,12 +65,23 @@ built on the card with its first step's loss and gradients against the
 same step on the CPU, ``train_hyper_combine --style-aux
 --select-sep-margin`` then ``test_all`` (five result sets),
 ``cc_train_gru``, ``train_cc`` without ``--fetch``, and ``train_init``
-then ``train_hypernet --init-hn`` on its checkpoint.  One line per phase
-gives the phase's seconds.
+then ``train_hypernet --init-hn`` on its checkpoint.  Phase 24 drives
+the cell and LSTM captioners on phase 20's corpus after releasing the
+earlier phases' card memory: ``train_captioning --cell gru`` at its
+defaults (the v0 hypernet captioner, 3.657 B parameters, updated in place
+by the chunked optimizer) for an epoch with ``--tf-decay 0.5`` (teacher-
+forced and sampled steps; every loss finite, ``fc_out`` bit-equal to its
+init, the peak card memory under the card's), ``--cell lstm`` at H=150
+(at H=200 it fits no single card), ``capgru_loss``'s first TF and sampled
+steps on the card against the CPU (GRU and LSTM, 1 and 2 layers), and
+``train_lstm``'s four variants at full width (each first step and greedy
+decode against the CPU's, the checkpoint restored exactly).  One line per
+phase gives the phase's seconds.
 The line before the last is a JSON ``kernels`` record (K3's and K4's
 entries also carry their launches in phase 20's ``fit`` and, as
 ``launches_cc``, in phase 23's ``cc_train_hypernet`` ``fit``; K1's, K2's
-and K4's their launches on phase 21's paths, K4's on phase 22's); the last line is
+and K4's their launches on phase 21's paths, K4's on phase 22's and, as
+``launches_cell_lstm``, on phase 24's runs); the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or a
 failed build raises, and the script exits non-zero without that last line.
 """
@@ -80,6 +91,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import gc
 import json
 import os
 import pickle
@@ -98,6 +110,7 @@ import torch.nn.functional as F
 from captionax_torch.cli import caption as cli_caption
 from captionax_torch.cli import cc_train_gru as cli_cc_gru
 from captionax_torch.cli import cc_train_hypernet as cli_cc_hypernet
+from captionax_torch.cli import train_captioning as cli_captioning
 from captionax_torch.cli import train_classifier as cli_classifier
 from captionax_torch.cli import evaluate as cli_evaluate
 from captionax_torch.cli import serve as cli_serve
@@ -108,6 +121,7 @@ from captionax_torch.cli import train_gru as cli_gru
 from captionax_torch.cli import train_hyper_combine as cli_combine
 from captionax_torch.cli import train_hypernet as cli_hypernet
 from captionax_torch.cli import train_init as cli_init
+from captionax_torch.cli import train_lstm as cli_lstm
 from captionax_torch.core.config import DataConfig, ModelConfig
 from captionax_torch.core.runtime import StepTimer
 from captionax_torch.core.vocab import Vocab, load_vocab_pickle
@@ -149,7 +163,9 @@ from captionax_torch.models.encoder import (
     resnet_init,
     resnet_stem,
 )
+from captionax_torch.models.cell_decoders import gumbel_noise
 from captionax_torch.models.hypernet import hypernet_apply, hypernet_init, theta_param_count
+from captionax_torch.models.layers import count_params
 from captionax_torch.ops import _cuda
 from captionax_torch.ops import conv_kernel as ck
 from captionax_torch.ops import decode_kernel as dk
@@ -158,6 +174,7 @@ from captionax_torch.ops.probe import select_times as sel_probe
 from captionax_torch.train import checkpoint as tckpt
 from captionax_torch.train import harness
 from captionax_torch.train import steps as tsteps
+from captionax_torch.train.losses import cross_entropy_loss
 from captionax_torch.train.state import (
     create_train_state,
     make_optimizer,
@@ -4224,6 +4241,303 @@ def cc_zero_shot() -> dict:
     return {"counts": rec["fit_counts"], "by_width": rec["fit_by_width"]}
 
 
+# ------------------------------------------------------------------ 24: the cell and LSTM captioners
+# train_captioning at the CLI defaults is the v0 hypernet captioner at
+# E = H = 200: 3.657 B parameters, 58.5 GB with gradients and Adam's two
+# moments.  Its LSTM at H = 200 (6.474 B, 103.6 GB) fits no single card, so
+# the LSTM runs at H = 150 (2.863 B, 45.8 GB).  --tf-decay 0.5 brings
+# sampled steps into the one epoch (seed 0's draws: TF, TF, then sampled).
+CAP_TF_DECAY = "0.5"
+CAP_LSTM_H = 150
+CAP_LSTM_IMAGES = 240   # three train batches of 64: TF, TF, sampled
+CAP_SMALL = 32          # E = H of the card-against-CPU steps, at V = 9684
+CAP_LOSS_RTOL = 1e-4    # phase 22's bounds
+CAP_GRAD_SHARE = 1e-3
+LSTM_IDS_AGREEMENT = 0.99
+
+
+def k4_counts() -> tuple:
+    return (sum(op.launches for op in ck.KERNELS), dict(ck.LAUNCHES_BY_WIDTH))
+
+
+def k4_since(before: tuple) -> tuple:
+    n, widths = k4_counts()
+    return n - before[0], {w: c - before[1].get(w, 0) for w, c in widths.items()}
+
+
+@contextlib.contextmanager
+def patched(mod, **fns):
+    """``mod``'s attributes replaced for the block, then put back."""
+    old = {k: getattr(mod, k) for k in fns}
+    for k, v in fns.items():
+        setattr(mod, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(mod, k, v)
+
+
+def held_tensors(min_bytes: int = 10 ** 8) -> str:
+    """The live card tensors of at least ``min_bytes``, largest first (what
+    an earlier phase left behind)."""
+    big = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            if st.nbytes() >= min_bytes:
+                big[st.data_ptr()] = (st.nbytes(), tuple(o.shape))
+    if not big:
+        return ""
+    top = sorted(big.values(), reverse=True)
+    return (f"; {len(top)} tensors of over {min_bytes / 1e9:.1f} GB hold "
+            f"{sum(n for n, _ in top) / 1e9:.2f} GB, the largest "
+            + ", ".join(f"{list(shape)} {n / 1e9:.2f} GB" for n, shape in top[:6]))
+
+
+def synced_ms(fn, *args):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def captioning_run(flags: list, what: str) -> dict:
+    """train_captioning as a user runs it, with its model build, train
+    state and steps timed (a sync around each), fc_out kept at its init
+    and K4's launches counted.  -> the record."""
+    rec = {"steps": []}
+    build, state_of, make_step = (cli_captioning.build_capgru_model,
+                                  cli_captioning.create_train_state,
+                                  cli_captioning.make_train_step)
+
+    def timed_build(*args, **kwargs):
+        params, rec["build_ms"] = synced_ms(lambda: build(*args, **kwargs))
+        rec["params"] = count_params(params)
+        rec["fc_out"] = {k: v.detach().cpu().clone()
+                         for k, v in params["decoder"]["fc_out"].items()}
+        return params
+
+    def timed_state(*args, **kwargs):
+        state, rec["state_ms"] = synced_ms(lambda: state_of(*args, **kwargs))
+        return state
+
+    def timed_make(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(state, feats, caps, style, teacher_forcing, h0, gumbel):
+            (new, loss), ms = synced_ms(step, state, feats, caps, style, teacher_forcing,
+                                        h0, gumbel)
+            rec["steps"].append((teacher_forcing, ms, float(loss)))
+            return new, loss
+        return timed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = k4_counts()
+    t0 = time.perf_counter()
+    with patched(cli_captioning, build_capgru_model=timed_build,
+                 create_train_state=timed_state, make_train_step=timed_make):
+        state = cli_captioning.main(flags)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["k4"], rec["by_width"] = k4_since(before)
+    total = torch.cuda.get_device_properties(0).total_memory
+    steps = rec["steps"]
+    tf_ms = [ms for tf, ms, _ in steps if tf]
+    sampled_ms = [ms for tf, ms, _ in steps if not tf]
+    fc = state.params["decoder"]["fc_out"]
+    same_fc = all(torch.equal(fc[k].cpu(), rec["fc_out"][k]) for k in fc)
+    B = int(flags[flags.index("--batch-size") + 1])
+    say(f"  {what}: {rec['params']:,} parameters; the model drawn on the host and uploaded "
+        f"leaf by leaf {rec['build_ms'] / 1e3:.2f} s, the train state (Adam's moments on the "
+        f"card) {rec['state_ms'] / 1e3:.2f} s; {len(steps)} steps ({len(tf_ms)} teacher-forced, "
+        f"{len(sampled_ms)} sampled): {np.median(tf_ms) if tf_ms else float('nan'):.1f} ms per "
+        f"TF step, {np.median(sampled_ms) if sampled_ms else float('nan'):.1f} ms per sampled "
+        f"step (median; a sync before and after), "
+        f"{B * len(steps) / (sum(tf_ms) + sum(sampled_ms)) * 1e3:.1f} images/s in the steps, "
+        f"{B * len(steps) / rec['seconds']:.1f} over the run ({rec['seconds']:.2f} s, the build "
+        "and the encoder in it); each step " + ", ".join(
+            f"{'TF' if tf else 'sampled'} {ms:.1f} ms (loss {l:.4f})" for tf, ms, l in steps)
+        + f"; peak card memory {rec['peak'] / 1e9:.2f} GB of {total / 1e9:.2f} GB; K4 launches "
+        f"{rec['k4']}; fc_out bit-equal to its init: {same_fc} [{CARD}]")
+    require(all(np.isfinite(l) for *_, l in steps), f"{what}: a loss is not finite")
+    require(tf_ms and sampled_ms, f"{what}: the run did not both teacher-force and sample")
+    require(same_fc, f"{what}: fc_out moved")
+    require(rec["peak"] < total, f"{what}: peak memory {rec['peak']} of {total}")
+    require(rec["k4"] > 0, f"{what}: K4 did not launch")
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def capgru_step_on(params, feats, caps, style, cell, tf, h0, gumbel, device):
+    p = to_device(params, device)
+    args = [None if x is None else x.to(device) for x in (feats, caps, style, h0, gumbel)]
+    return tsteps._value_and_grad(lambda q: cli_captioning.capgru_loss(
+        q, args[0], args[1], args[2], cell=cell, teacher_forcing=tf, pad_id=None,
+        h0=args[3], gumbel=args[4]), p)
+
+
+def captioning_card_vs_cpu(V: int) -> None:
+    """The first TF step and the first sampled step of capgru_loss at
+    E = H = CAP_SMALL, V = 9684, B = 64, on the card and on the CPU, from
+    the same weights and draws: GRU and LSTM, 1 and 2 layers."""
+    rs = np.random.RandomState(24)
+    B, T = CLI_BATCH, T_CAP
+    feats = torch.from_numpy(np.abs(rs.randn(B, 2048)).astype(np.float32))
+    caps = torch.from_numpy(rs.randint(0, V, (B, T)))
+    style = torch.tensor(STYLE)
+    worst = {}
+    for cell in ("gru", "lstm"):
+        for layers in (1, 2):
+            params = cli_captioning.build_capgru_model(gen(24 + layers), CAP_SMALL, CAP_SMALL,
+                                                       V, cell, layers, device="cpu")
+            g = gen(240 + layers)
+            h0 = torch.rand((B, CAP_SMALL), generator=g) if cell == "gru" else None
+            noise = gumbel_noise(g, (T, B, V), "cpu")
+            for tf in (True, False):
+                gum = None if tf else noise
+                loss_k, grads_k = capgru_step_on(params, feats, caps, style, cell, tf, h0,
+                                                 gum, DEVICE)
+                loss_c, grads_c = capgru_step_on(params, feats, caps, style, cell, tf, h0,
+                                                 gum, "cpu")
+                rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+                grad = max(share_of(a, b) for a, b in zip(tree_leaves(grads_k),
+                                                          tree_leaves(grads_c)))
+                name = f"{cell} {layers} layer{'s' if layers > 1 else ''} {'TF' if tf else 'sampled'}"
+                worst[name] = (float(loss_k), float(loss_c), rel, grad)
+                require(rel <= CAP_LOSS_RTOL, f"capgru_loss {name}: loss relative {rel}")
+                require(grad <= CAP_GRAD_SHARE, f"capgru_loss {name}: gradients {grad}")
+    say(f"  capgru_loss's first step, card against CPU (E = H = {CAP_SMALL}, V = {V}, B = {B}, "
+        f"T = {T}; loss bound {CAP_LOSS_RTOL} relative, gradients {CAP_GRAD_SHARE} of their "
+        "largest entry): " + "; ".join(
+            f"{k}: loss {a:.6f} / {b:.6f}, relative {r:.2e}, gradients {g:.2e}"
+            for k, (a, b, r, g) in worst.items()))
+
+
+def lstm_run(flags: list, variant: str, tmp: str) -> dict:
+    """train_lstm --variant ``variant`` for an epoch and its validation;
+    its first step and first greedy decode held against the CPU on the same
+    weights and inputs; the checkpoint restored."""
+    rec = {"steps": []}
+    make_step = cli_lstm.make_train_step
+    decodes = {"lstm_greedy": cli_lstm.lstm_greedy,
+               "show_attend_tell_sample": cli_lstm.show_attend_tell_sample}
+
+    def timed_make(forward, tx):
+        step = make_step(forward, tx)
+        rec["forward"] = forward
+
+        def timed(state, batch):
+            if "first" not in rec:  # the step writes the state in place: keep a copy
+                rec["first"] = (to_device(state.params, "cpu"), to_device(batch, "cpu"))
+            (new, loss), ms = synced_ms(step, state, batch)
+            rec["steps"].append((ms, float(loss)))
+            return new, loss
+        return timed
+
+    def kept(name):
+        def decode(params, feats, **kw):
+            ids = decodes[name](params, feats, **kw)
+            rec.setdefault("decode", (name, to_device(params, "cpu"), feats.cpu(), kw,
+                                      ids.cpu()))
+            return ids
+        return decode
+
+    ckdir = os.path.join(tmp, f"lstm_{variant}")
+    before = k4_counts()
+    t0 = time.perf_counter()
+    with patched(cli_lstm, make_train_step=timed_make,
+                 **{name: kept(name) for name in decodes}):
+        state, results = cli_lstm.main(flags + [
+            "--variant", variant, "--max-epochs", "1", "--cache-features-device",
+            "--checkpoint-dir", ckdir, "--run-name", f"phase24_{variant}"])
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["k4"], rec["by_width"] = k4_since(before)
+    losses = [l for _, l in rec["steps"]]
+    require(losses and all(np.isfinite(losses)), f"train_lstm {variant}: losses {losses}")
+    require(all(np.isfinite(float(v)) for v in results.values()),
+            f"train_lstm {variant}: validation {results}")
+    require(rec["k4"] > 0, f"train_lstm {variant}: K4 did not launch")
+    # the first step on the card against the CPU
+    params0, batch0 = rec["first"]
+    forward = rec["forward"]
+
+    def loss_grads(params, batch):
+        return tsteps._value_and_grad(
+            lambda p: cross_entropy_loss(*forward(p, batch)), params)
+
+    loss_k, grads_k = loss_grads(to_device(params0, DEVICE), to_device(batch0, DEVICE))
+    loss_c, grads_c = loss_grads(params0, batch0)
+    rel = abs(float(loss_k) - float(loss_c)) / abs(float(loss_c))
+    grad = max(share_of(a, b) for a, b in zip(tree_leaves(grads_k), tree_leaves(grads_c)))
+    require(rel <= CAP_LOSS_RTOL, f"train_lstm {variant}: first loss relative {rel}")
+    require(grad <= CAP_GRAD_SHARE, f"train_lstm {variant}: first gradients {grad}")
+    agree = None
+    if variant in ("attention", "sat"):
+        name, p_cpu, f_cpu, kw, ids_k = rec["decode"]
+        with torch.no_grad():
+            ids_c = decodes[name](p_cpu, f_cpu, **kw)
+        agree = (ids_k == ids_c).all(dim=1).float().mean().item()
+        require(agree >= LSTM_IDS_AGREEMENT, f"train_lstm {variant}: {name} rows {agree}")
+    saved = tckpt.restore_checkpoint(ckdir)
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(state.params),
+                                                        tree_leaves(saved))),
+            f"train_lstm {variant}: the checkpoint does not restore the parameters")
+    ms = [m for m, _ in rec["steps"]]
+    B = CLI_BATCH
+    say(f"  train_lstm --variant {variant} (E = H = 200, ResNet-152 on K4, "
+        f"--cache-features-device): {len(ms)} steps, {np.median(ms):.2f} ms per step (median; "
+        f"first {ms[0]:.1f} ms), {B / np.median(ms) * 1e3:.1f} images/s in the steps, the run "
+        f"{rec['seconds']:.2f} s; first step card against CPU: loss {float(loss_k):.6f} / "
+        f"{float(loss_c):.6f}, relative {rel:.2e}, gradients {grad:.2e}; val_loss_tf "
+        f"{results['val_loss_tf']:.4f}, tf_bleu1 {results['tf_bleu1']:.4f}"
+        + ("" if agree is None else f", greedy_bleu1 {results['greedy_bleu1']:.4f}; greedy "
+           f"rows equal to the CPU's {agree:.4f}")
+        + f"; K4 launches {rec['k4']}; the checkpoint restores exactly [{CARD}]")
+    del state
+    return rec
+
+
+def cell_lstm_captioners() -> dict:
+    """(24) The cell and LSTM captioners as a user runs them, on phase 20's
+    corpus: train_captioning --cell gru at the CLI defaults (3.657 B
+    parameters) for an epoch, --cell lstm at H = 150 for three steps,
+    capgru_loss's first steps card against CPU at E = H = 32, and
+    train_lstm's four variants at full width.  -> K4's launches in the
+    phase's runs, by chain width."""
+    t_phase = time.perf_counter()
+    by_width: dict = {}
+    with tempfile.TemporaryDirectory(prefix="captionax-cells-") as tmp:
+        data = cli_corpus(tmp)
+        vocab = load_vocab_pickle(data[data.index("--vocab-path") + 1])
+        base = data + ["--max-epochs", "1", "--tf-decay", CAP_TF_DECAY, "--log-every", "1"]
+        say(f"  card memory held before the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB"
+            + held_tensors())
+        runs = [captioning_run(base + [
+            "--synthetic-images", str(CLI_IMAGES), "--cell", "gru",
+            "--checkpoint-dir", os.path.join(tmp, "cap_gru"), "--run-name", "phase24_gru"],
+            "train_captioning --cell gru (E = H = 200, V = 9684, one layer, B = 64)")]
+        runs.append(captioning_run(base + [
+            "--synthetic-images", str(CAP_LSTM_IMAGES), "--cell", "lstm",
+            "--hidden-size", str(CAP_LSTM_H), "--checkpoint-dir", os.path.join(tmp, "cap_lstm"),
+            "--run-name", "phase24_lstm"],
+            f"train_captioning --cell lstm (E = 200, H = {CAP_LSTM_H}, V = 9684, B = 64)"))
+        captioning_card_vs_cpu(len(vocab))
+        flags = data + ["--synthetic-images", str(CLI_IMAGES), "--log-every", "1"]
+        runs += [lstm_run(flags, v, tmp) for v in cli_lstm.VARIANTS]
+        for rec in runs:
+            for w, n in rec["by_width"].items():
+                by_width[w] = by_width.get(w, 0) + n
+    say(f"  phase 24: {time.perf_counter() - t_phase:.2f} s [{CARD}]")
+    return {"by_width": by_width}
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -4353,6 +4667,21 @@ def main() -> int:
         elif k["source"] == K4_SOURCE:
             width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
             k["launches_cc"] = ccz["by_width"].get(width, 0)
+    # the earlier phases' card memory goes before the 58.5 GB model comes:
+    # their locals here, and the trainers the CLI phases left in reference
+    # cycles (a trainer's FeatureCache holds its bound _encode), which only
+    # a collection frees
+    del model, theta, batches, server, gserver, paths, enc, encoders, x, ins, batch, served
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with Phase("24 the cell and LSTM captioners: train_captioning (the v0 hypernet, 3.657 B "
+               "parameters), capgru_loss card against CPU, train_lstm's four variants (K4)"):
+        cells = cell_lstm_captioners()
+    for k in kernels:
+        if k["source"] == K4_SOURCE:
+            width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
+            k["launches_cell_lstm"] = cells["by_width"].get(width, 0)
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))
