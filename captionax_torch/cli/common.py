@@ -13,8 +13,8 @@ functions draw their weights from a ``torch.Generator`` on the host and
 place them on ``device``.  :func:`model_generators` gives the two
 generators a run draws its decoder and its encoder from, so that
 ``evaluate`` rebuilds the training run's encoder.  ``--mesh-data`` other
-than 0 raises: data parallelism is the ``ROADMAP.md`` queue item
-"Parallelism".
+than 0 raises, as do ``--pipe`` and ``--seq`` above 1: parallelism is
+the ``ROADMAP.md`` queue item "Parallelism".
 """
 
 from __future__ import annotations
@@ -62,12 +62,19 @@ def make_parser(description: str) -> argparse.ArgumentParser:
 
 
 def resolve_mesh(args):
-    """None for ``--mesh-data 0``; data parallelism is not ported yet."""
+    """None for ``--mesh-data 0``; data parallelism is not ported yet, and
+    neither are the transformer CLIs' ``--pipe`` and ``--seq`` (above 1)."""
     n = getattr(args, "mesh_data", 0)
     if n:
         raise NotImplementedError(
             f"--mesh-data {n}: data parallelism is not ported yet "
             "(the ROADMAP.md queue item \"Parallelism\")")
+    for flag, what in (("pipe", "pipeline"), ("seq", "sequence")):
+        n = getattr(args, flag, 1)
+        if n > 1:
+            raise NotImplementedError(
+                f"--{flag} {n}: {what} parallelism is not ported yet "
+                "(the ROADMAP.md queue item \"Parallelism\")")
     return None
 
 

@@ -75,13 +75,21 @@ init, the peak card memory under the card's), ``--cell lstm`` at H=150
 (at H=200 it fits no single card), ``capgru_loss``'s first TF and sampled
 steps on the card against the CPU (GRU and LSTM, 1 and 2 layers), and
 ``train_lstm``'s four variants at full width (each first step and greedy
-decode against the CPU's, the checkpoint restored exactly).  One line per
-phase gives the phase's seconds.
+decode against the CPU's, the checkpoint restored exactly).  Phase 25
+drives the transformer captioners on phase 20's corpus, on a ResNet-152
+with every folded scale drawn: ``train_labert`` at its defaults (106.7 M
+parameters) and ``train_catr`` at its defaults (25.8 M) for an epoch with
+their validation and decodes (mask-predict, greedy), each CLI's first batch
+of features (K4) against ``CNNEncoder.plain``, each step by part, and the
+first train step of both models at hidden 64 on the card (f32) against the
+CPU (f64) on the CLIs' own first inputs, then both decodes card against
+CPU.  One line per phase gives the phase's seconds.
 The line before the last is a JSON ``kernels`` record (K3's and K4's
 entries also carry their launches in phase 20's ``fit`` and, as
 ``launches_cc``, in phase 23's ``cc_train_hypernet`` ``fit``; K1's, K2's
 and K4's their launches on phase 21's paths, K4's on phase 22's and, as
-``launches_cell_lstm``, on phase 24's runs); the last line is
+``launches_cell_lstm``, on phase 24's runs and, as
+``launches_transformers``, on phase 25's); the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or a
 failed build raises, and the script exits non-zero without that last line.
 """
@@ -111,6 +119,7 @@ from captionax_torch.cli import caption as cli_caption
 from captionax_torch.cli import cc_train_gru as cli_cc_gru
 from captionax_torch.cli import cc_train_hypernet as cli_cc_hypernet
 from captionax_torch.cli import train_captioning as cli_captioning
+from captionax_torch.cli import train_catr as cli_catr
 from captionax_torch.cli import train_classifier as cli_classifier
 from captionax_torch.cli import evaluate as cli_evaluate
 from captionax_torch.cli import serve as cli_serve
@@ -121,6 +130,7 @@ from captionax_torch.cli import train_gru as cli_gru
 from captionax_torch.cli import train_hyper_combine as cli_combine
 from captionax_torch.cli import train_hypernet as cli_hypernet
 from captionax_torch.cli import train_init as cli_init
+from captionax_torch.cli import train_labert as cli_labert
 from captionax_torch.cli import train_lstm as cli_lstm
 from captionax_torch.core.config import DataConfig, ModelConfig
 from captionax_torch.core.runtime import StepTimer
@@ -163,8 +173,10 @@ from captionax_torch.models.encoder import (
     resnet_init,
     resnet_stem,
 )
+from captionax_torch.models.catr import catr_forward, catr_greedy
 from captionax_torch.models.cell_decoders import gumbel_noise
 from captionax_torch.models.hypernet import hypernet_apply, hypernet_init, theta_param_count
+from captionax_torch.models.labert import labert_loss, mask_predict_decode
 from captionax_torch.models.layers import count_params
 from captionax_torch.ops import _cuda
 from captionax_torch.ops import conv_kernel as ck
@@ -179,6 +191,7 @@ from captionax_torch.train.state import (
     create_train_state,
     make_optimizer,
     tree_leaves,
+    tree_map,
     tree_unflatten,
 )
 from captionax_torch.train.steps import (
@@ -4538,6 +4551,254 @@ def cell_lstm_captioners() -> dict:
     return {"by_width": by_width}
 
 
+# ------------------------------------------------------------------ 25: the transformer captioners
+# train_labert and train_catr at their CLI defaults: LaBERT at hidden 768,
+# 12 layers, 12 heads, FFN 3072 over V = 9684 + [MASK] (106.7 M
+# parameters, 49 + 25 tokens a row), CATR at hidden 256, 8 heads, FFN
+# 2048, 6 + 6 layers (25.8 M).  Their ResNet-152 is k4_resnet's (every
+# folded scale and bias drawn), so the K4 check on the CLI's own batch sees
+# every conv.
+TR_SMALL = 64            # hidden of the card-against-CPU steps, 2 layers a side, at V = 9684
+TR_SMALL_HEADS = 2       # LaBERT's decode runs hidden // 64 = 1 head, as captionax's
+TR_SMALL_LAYERS = 2
+TR_DECODE_BATCHES = 2    # the card-against-CPU decodes run on the first two batches' features
+TR_IDS_AGREEMENT = 0.99  # rows of ids equal, card against CPU (near ties)
+TR_MASK_LENGTH = 12      # train_labert's mask-predict length
+
+
+def transformer_run(cli, kind: str, flags: list, what: str, step_loss) -> dict:
+    """train_labert or train_catr as a user runs it, on k4_resnet's ResNet,
+    with its model build, steps and decodes timed (a sync around each), the
+    first step's inputs and the first batches' images and features kept,
+    the final metrics recorded and K4's launches counted; then a step on
+    the first inputs by part (``step_loss(params, *inputs)``, the step's
+    loss).  -> the record."""
+    rec = {"steps": [], "feats": [], "decodes": [], "metrics": []}
+    build_name = "build_labert_model" if kind == "labert" else "build_catr_model"
+    decode_name = "mask_predict_decode" if kind == "labert" else "catr_greedy"
+    build, make_step = getattr(cli, build_name), cli.make_train_step
+    make_enc, decode, metrics = cli.make_encoder, getattr(cli, decode_name), cli.CaptionMetrics
+
+    def timed_build(*args, **kwargs):
+        params, rec["build_ms"] = synced_ms(lambda: build(*args, **kwargs))
+        rec["params"] = count_params(params)
+        return params
+
+    def spied_encoder(params, regions=True, device=None):
+        encode = make_enc(params, regions, device)
+        rec["encoder_params"] = params
+
+        def spied(images):
+            out = encode(images)
+            if len(rec["feats"]) < TR_DECODE_BATCHES:
+                rec["feats"].append((images, out.detach().clone()))
+            return out
+        return spied
+
+    def timed_make(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+        rec["tx"] = args[0]
+
+        def timed(state, *inputs):
+            if "first" not in rec:
+                rec["first"] = to_device(list(inputs), "cpu")
+            (new, loss), ms = synced_ms(step, state, *inputs)
+            rec["steps"].append((ms, float(loss)))
+            return new, loss
+        return timed
+
+    def timed_decode(*args, **kwargs):
+        ids, ms = synced_ms(lambda: decode(*args, **kwargs))
+        rec["decodes"].append((ms, tuple(ids.shape)))
+        return ids
+
+    class Recorded(metrics):
+        def compute(self):
+            out = super().compute()
+            rec["metrics"].append(out)
+            return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = k4_counts()
+    t0 = time.perf_counter()
+    with patched(cli, **{build_name: timed_build, "build_encoder": lambda *a, **k: k4_resnet(25),
+                         "make_encoder": spied_encoder, "make_train_step": timed_make,
+                         decode_name: timed_decode, "CaptionMetrics": Recorded}):
+        state = cli.main(flags)
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["k4"], rec["by_width"] = k4_since(before)
+    losses = [l for _, l in rec["steps"]]
+    require(losses and all(np.isfinite(losses)), f"{what}: losses {losses}")
+    require(rec["decodes"] and rec["metrics"], f"{what}: no validation decode")
+    require(all(np.isfinite(v) for v in rec["metrics"][-1].values()),
+            f"{what}: metrics {rec['metrics'][-1]}")
+    require(rec["k4"] > 0, f"{what}: K4 did not launch")
+    require(rec["peak"] < torch.cuda.get_device_properties(0).total_memory,
+            f"{what}: peak memory {rec['peak']}")
+    ms = [m for m, _ in rec["steps"]]
+    warm = ms[1:] or ms
+    B = CLI_BATCH
+    log = logged(os.path.join(flags[flags.index("--checkpoint-dir") + 1], "run.jsonl"))
+    val = [r["val_loss"] for r in log if "val_loss" in r]
+    require(all(np.isfinite(val)), f"{what}: val_loss {val}")
+    say(f"  {what}: {rec['params']:,} parameters, drawn on the host and uploaded "
+        f"{rec['build_ms'] / 1e3:.2f} s; {len(ms)} steps: {np.median(warm):.2f} ms per warm step "
+        f"(median of {len(warm)}; first {ms[0]:.1f} ms; a sync before and after), "
+        f"{B / np.median(warm) * 1e3:.1f} images/s in the warm steps, the run "
+        f"{rec['seconds']:.2f} s (the ResNet-152 on K4 in every batch, the model's build); "
+        f"losses " + ", ".join(f"{l:.4f}" for l in losses)
+        + (f"; val_loss {val[-1]:.4f}" if val else "")
+        + "; decodes " + ", ".join(f"{list(shape)} {m:.1f} ms" for m, shape in rec["decodes"])
+        + f"; metrics bleu1 {rec['metrics'][-1]['bleu1']:.4f}; peak card memory "
+        f"{rec['peak'] / 1e9:.2f} GB; K4 launches {rec['k4']} [{CARD}]")
+    inputs = to_device(rec["first"], DEVICE)
+    step_parts(state, rec.pop("tx"), lambda p: step_loss(p, *inputs), f"{what}, a step by part")
+    del state, inputs
+    return rec
+
+
+def k4_on_cli_batch(rec: dict, what: str) -> None:
+    """The CLI's features of its first batch against CNNEncoder.plain on the
+    same images (bf16, the encoder's compute dtype)."""
+    images, feats = rec["feats"][0]
+    ref = CNNEncoder(rec["encoder_params"], device=DEVICE).plain(
+        preprocess_images(images, DEVICE))
+    require(feats.shape == ref.shape, f"{what}: {tuple(feats.shape)} {tuple(ref.shape)}")
+    require(bool(torch.isfinite(feats).all()), f"{what}: non-finite features")
+    rel = rel_err(feats, ref)
+    say(f"  {what}: the first batch's features {list(feats.shape)} (K4) against "
+        f"CNNEncoder.plain on the same images: max error {rel:.3e} of the largest entry "
+        f"{ref.float().abs().max().item():.3f} (bound {K4_FULL_BF16_TOL}) [{CARD}]")
+    require(rel <= K4_FULL_BF16_TOL, f"{what}: K4 error {rel} > {K4_FULL_BF16_TOL}")
+
+
+def card_and_cpu(loss_fn, params, inputs):
+    """(loss, gradients) on the card in f32 and on the CPU in f64 and f32,
+    from the same weights and inputs -> (card loss, CPU f64 loss, relative,
+    worst gradient share against f64, the same against the CPU's f32).
+    The CPU's f32 gradients are not the reference: on some leaves they
+    stray further from f64 than the card's do (``PERF.md``)."""
+    f64 = lambda tree: tree_map(lambda x: x.double() if x.is_floating_point() else x, tree)
+    out = {}
+    for key, device, cast in (("card", DEVICE, None), ("f64", "cpu", f64), ("f32", "cpu", None)):
+        p, args = to_device(params, device), to_device(inputs, device)
+        if cast is not None:
+            p, args = cast(p), cast(args)
+        out[key] = tsteps._value_and_grad(lambda q: loss_fn(q, *args), p)
+    (loss_k, grads_k), (loss_r, grads_r) = out["card"], out["f64"]
+    rel = abs(float(loss_k) - float(loss_r)) / abs(float(loss_r))
+    grad, worst = max(zip(map(share_of, tree_leaves(grads_k), tree_leaves(grads_r)),
+                          leaf_paths(grads_r)))
+    grad32 = max(map(share_of, tree_leaves(grads_k), tree_leaves(out["f32"][1])))
+    return float(loss_k), float(loss_r), rel, grad, worst, grad32
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The leaves' paths (``a/b/0/c``) in the order of ``tree_leaves``."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def rows_equal(decode, params, feats) -> float:
+    """The share of rows whose ids the card and the CPU decode alike."""
+    ids_k = decode(to_device(params, DEVICE), feats.to(DEVICE)).cpu()
+    ids_c = decode(params, feats)
+    return (ids_k == ids_c).all(dim=1).float().mean().item()
+
+
+def transformers_card_vs_cpu(runs: dict, V: int) -> None:
+    """The first train step of LaBERT and of CATR at hidden TR_SMALL, 2
+    layers a side, V = 9684, B = 64, on the card (f32) and on the CPU (f64)
+    from the same weights and the CLI runs' own first inputs (features,
+    captions, LaBERT's types and mask draws); then mask_predict_decode and
+    catr_greedy in f32 on the first batches' features, card against CPU."""
+    lab, cat = runs["labert"], runs["catr"]
+    feats = torch.cat([f for _, f in lab["feats"]]).cpu()
+    mask_id = V
+    lab_params = cli_labert.build_labert_model(gen(250), V + 1, TR_SMALL, TR_SMALL_LAYERS,
+                                               TR_SMALL_HEADS, "cpu")
+    cat_params = cli_catr.build_catr_model(gen(251), V, TR_SMALL, TR_SMALL_HEADS,
+                                           TR_SMALL_LAYERS, TR_SMALL_LAYERS, "cpu")
+    checks = {
+        "labert_loss": card_and_cpu(
+            lambda p, f, c, t, d: labert_loss(p, f, c, t, d, mask_id, num_heads=TR_SMALL_HEADS),
+            lab_params, lab["first"]),
+        "catr_forward CE": card_and_cpu(
+            lambda p, f, c: cross_entropy_loss(
+                catr_forward(p, f, c[:, :-1], num_heads=TR_SMALL_HEADS), c[:, 1:]),
+            cat_params, cat["first"]),
+    }
+    for name, (_, _, rel, grad, _, _) in checks.items():
+        require(rel <= CAP_LOSS_RTOL, f"{name}: first loss relative {rel}")
+        require(grad <= CAP_GRAD_SHARE, f"{name}: first gradients {grad}")
+    with torch.no_grad():
+        agree = {
+            "mask_predict_decode": rows_equal(
+                lambda p, f: mask_predict_decode(p, f, mask_id, length=TR_MASK_LENGTH),
+                lab_params, feats),
+            "catr_greedy": rows_equal(
+                lambda p, f: catr_greedy(p, f, max_len=T_CAP, num_heads=TR_SMALL_HEADS),
+                cat_params, feats),
+        }
+    say(f"  the first train step, card (f32) against CPU (f64) (hidden {TR_SMALL}, "
+        f"{TR_SMALL_LAYERS} layers a side, {TR_SMALL_HEADS} heads, V = {V}, B = {CLI_BATCH}, the "
+        f"CLI runs' first inputs; loss bound {CAP_LOSS_RTOL} relative, gradients "
+        f"{CAP_GRAD_SHARE} of their largest entry): " + "; ".join(
+            f"{k}: loss {a:.6f} / {b:.6f}, relative {r:.2e}, gradients {g:.2e} (at {leaf}; "
+            f"against the CPU's f32 {g32:.2e})" for k, (a, b, r, g, leaf, g32) in checks.items())
+        + f"; decodes on {len(feats)} rows, rows equal to the CPU's: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in agree.items()) + f" [{CARD}]")
+    for name, share in agree.items():
+        require(share >= TR_IDS_AGREEMENT, f"{name}: rows equal {share}")
+
+
+def transformer_captioners() -> dict:
+    """(25) The transformer captioners as a user runs them, on phase 20's
+    corpus: train_labert and train_catr at their defaults for an epoch with
+    their validation and decodes, K4 on each CLI's first batch against its
+    plain version, and the first train steps and decodes at hidden 64 on
+    the card against the CPU.  -> K4's launches in the phase's runs, by
+    chain width."""
+    t_phase = time.perf_counter()
+    by_width: dict = {}
+    with tempfile.TemporaryDirectory(prefix="captionax-transformers-") as tmp:
+        data = cli_corpus(tmp)
+        vocab = load_vocab_pickle(data[data.index("--vocab-path") + 1])
+        base = data + ["--synthetic-images", str(CLI_IMAGES), "--max-epochs", "1",
+                       "--log-every", "1"]
+        say(f"  card memory held before the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB"
+            + held_tensors())
+        runs = {
+            "labert": transformer_run(
+                cli_labert, "labert", base + ["--checkpoint-dir", os.path.join(tmp, "labert"),
+                                              "--run-name", "run"],
+                f"train_labert (hidden 768, 12 layers, 12 heads, FFN 3072, V = {len(vocab)} + "
+                "[MASK], B = 64, 49 + 25 tokens)",
+                lambda p, f, c, t, d: labert_loss(p, f, c, t, d, len(vocab), num_heads=12)),
+            "catr": transformer_run(
+                cli_catr, "catr", base + ["--checkpoint-dir", os.path.join(tmp, "catr"),
+                                          "--run-name", "run"],
+                f"train_catr (hidden 256, 8 heads, FFN 2048, 6 + 6 layers, V = {len(vocab)}, "
+                "B = 64)",
+                lambda p, f, c: cross_entropy_loss(catr_forward(p, f, c[:, :-1], num_heads=8),
+                                                   c[:, 1:])),
+        }
+        for name, rec in runs.items():
+            k4_on_cli_batch(rec, f"train_{name}'s encoder")
+            for w, n in rec["by_width"].items():
+                by_width[w] = by_width.get(w, 0) + n
+        transformers_card_vs_cpu(runs, len(vocab))
+    say(f"  phase 25: {time.perf_counter() - t_phase:.2f} s [{CARD}]")
+    return {"by_width": by_width}
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -4682,6 +4943,17 @@ def main() -> int:
         if k["source"] == K4_SOURCE:
             width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
             k["launches_cell_lstm"] = cells["by_width"].get(width, 0)
+    del cells
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with Phase("25 the transformer captioners: train_labert (106.7 M parameters), train_catr "
+               "(25.8 M), their first steps and decodes card against CPU (K4)"):
+        trans = transformer_captioners()
+    for k in kernels:
+        if k["source"] == K4_SOURCE:
+            width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
+            k["launches_transformers"] = trans["by_width"].get(width, 0)
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))

@@ -210,6 +210,50 @@ def _entry_domain_embedder_init_params():
     DomainEmbedder("embedding", None, ["a", "b"]).init_params(torch.Generator())
 
 
+def _transformer_cli(module: str, *extra):
+    """A transformer CLI's main at the fixture's flags, without --device."""
+    import importlib
+
+    from tests.fixtures.gru_fixture import flags
+
+    importlib.import_module(f"captionax_torch.cli.{module}").main(
+        flags("unused") + ["--hidden", "32", *extra])
+
+
+def _entry_train_labert():
+    _transformer_cli("train_labert", "--bert-layers", "1")
+
+
+def _entry_train_catr():
+    _transformer_cli("train_catr", "--enc-layers", "1", "--dec-layers", "1")
+
+
+def _entry_labert_init():
+    from captionax_torch.models.labert import labert_init
+
+    labert_init(torch.Generator(), 10, hidden=8, num_layers=1, num_heads=1, intermediate=8,
+                image_dim=8)
+
+
+def _entry_catr_init():
+    from captionax_torch.models.catr import catr_init
+
+    catr_init(torch.Generator(), 10, hidden=8, num_heads=1, ff=8, enc_layers=1, dec_layers=1,
+              image_dim=8)
+
+
+def _entry_causal_mask():
+    from captionax_torch.models.transformer import causal_mask
+
+    causal_mask(3)
+
+
+def _entry_sine_position_2d():
+    from captionax_torch.models.transformer import sine_position_2d
+
+    sine_position_2d(2, 2, 8)
+
+
 ENTRY_POINTS = {name[7:]: fn for name, fn in globals().items() if name.startswith("_entry_")}
 
 
