@@ -11,6 +11,9 @@ decode and encoder overlap batch i's decode.  One JSON line per (image,
 style), or per request row with ``--requests``: a mixed-style stream over
 a theta bank, each row picking its style.
 
+``--mesh-data`` is accepted and ignored: this CLI runs on one device,
+as captionax's does.
+
     python -m captionax_torch.cli.caption --images /path/to/jpgs \\
         --checkpoint-dir ckpt --kind hypernet --styles factual,humour \\
         --out captions.jsonl
@@ -37,7 +40,6 @@ from captionax_torch.cli.common import (
     make_parser,
     model_generators,
     parse_configs,
-    resolve_mesh,
     resolve_vocab,
 )
 from captionax_torch.core.runtime import resolve_device
@@ -136,7 +138,6 @@ def main(argv=None):
                              "instead of the K1 / K2 kernels (as on the CPU)")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    resolve_mesh(args)
     device = resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)

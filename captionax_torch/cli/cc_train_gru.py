@@ -7,6 +7,10 @@ CC baseline the domain hypernet is compared against.  Images are made from
 their names with ``--synthetic``; otherwise the batches carry none, as in
 captionax.  Runs on the card unless ``--device cpu`` is given.
 
+``--mesh-data N`` trains data parallel on N ranks, one process each
+(``parallel.launch``); rank 0 logs, writes the checkpoint and returns
+the history.
+
     python -m captionax_torch.cli.cc_train_gru --synthetic --max-epochs 2
 """
 
@@ -19,8 +23,10 @@ from captionax_torch.cli.common import (
     maybe_load_glove,
     model_generators,
     parse_configs,
+    ranks_to_start,
     resolve_mesh,
     resolve_vocab,
+    run_on_ranks,
 )
 from captionax_torch.core.runtime import resolve_device
 from captionax_torch.data.cc import ConceptualCaptionsData, load_cc_captions
@@ -32,9 +38,11 @@ def main(argv=None):
     parser = make_parser(__doc__)
     parser.add_argument("--encoder-weights", type=str, default="")
     args = parser.parse_args(argv)
+    if ranks_to_start(args):
+        return run_on_ranks(main, argv, args)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
     mesh = resolve_mesh(args)
-    device = resolve_device(args.device)
+    device = mesh.local_device if mesh is not None else resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)
     model_cfg.vocab_size = len(vocab)

@@ -9,6 +9,10 @@ before the resize), or made from their names with ``--synthetic``.  Runs
 on the card unless ``--device cpu`` is given; ``--fused-scan`` runs the
 teacher-forced recurrence on K3, and the frozen encoder runs on K4.
 
+``--mesh-data N`` trains data parallel on N ranks, one process each
+(``parallel.launch``); rank 0 logs, writes the checkpoint and returns
+the history.
+
     python -m captionax_torch.cli.cc_train_hypernet --synthetic \\
         --domain-scheme "histograme log" --max-epochs 2
 """
@@ -27,8 +31,10 @@ from captionax_torch.cli.common import (
     maybe_load_glove,
     model_generators,
     parse_configs,
+    ranks_to_start,
     resolve_mesh,
     resolve_vocab,
+    run_on_ranks,
 )
 from captionax_torch.core.runtime import DeviceLike, resolve_device
 from captionax_torch.data.cc import ConceptualCaptionsData, domain_list, load_cc_captions
@@ -77,9 +83,11 @@ def main(argv=None):
     parser.add_argument("--encoder-weights", type=str, default="",
                         help="torchvision resnet state_dict (.pt) to fold")
     args = parser.parse_args(argv)
+    if ranks_to_start(args):
+        return run_on_ranks(main, argv, args)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
     mesh = resolve_mesh(args)
-    device = resolve_device(args.device)
+    device = mesh.local_device if mesh is not None else resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)
     model_cfg.vocab_size = len(vocab)

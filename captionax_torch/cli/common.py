@@ -12,15 +12,23 @@ The port's conventions: ``--device`` picks the device (default: the card;
 functions draw their weights from a ``torch.Generator`` on the host and
 place them on ``device``.  :func:`model_generators` gives the two
 generators a run draws its decoder and its encoder from, so that
-``evaluate`` rebuilds the training run's encoder.  ``--mesh-data`` other
-than 0 raises, as do ``--pipe`` and ``--seq`` above 1: parallelism is
-the ``ROADMAP.md`` queue item "Parallelism".
+``evaluate`` rebuilds the training run's encoder.
+
+``--mesh-data N`` is data parallelism (``captionax_torch/parallel``): a
+training CLI that reads it starts N ranks, one process each, through
+``parallel.launch`` (:func:`ranks_to_start`, :func:`run_on_ranks`) and
+trains on the ranks' mesh (:func:`resolve_mesh`); ``serve`` shards each
+dispatch over N devices in one process.  The other CLIs accept the flag
+and run on one device, as captionax's do.  ``--pipe`` and ``--seq`` above
+1 raise: pipeline and sequence parallelism are the ``ROADMAP.md`` queue
+item "Parallelism" (6b).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from typing import Tuple
 
 import torch
@@ -53,29 +61,58 @@ def make_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--run-name", type=str, default="run")
     p.add_argument("--resume", type=str, default="")
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="shard batches over N devices (0 = single device); "
-                        "not ported yet, anything but 0 raises")
+                   help="data parallel over N devices on the 'data' mesh axis "
+                        "(0 = one device): the training CLIs start N ranks, one "
+                        "process each (NCCL where each rank has a card of its own, "
+                        "else gloo), serve shards each dispatch over N devices")
     p.add_argument("--device", type=str, default=None,
                    help="torch device to run on (default: the card, 'cuda'); "
                         "'cpu' runs the plain PyTorch versions of the kernels")
     return p
 
 
-def resolve_mesh(args):
-    """None for ``--mesh-data 0``; data parallelism is not ported yet, and
-    neither are the transformer CLIs' ``--pipe`` and ``--seq`` (above 1)."""
-    n = getattr(args, "mesh_data", 0)
-    if n:
-        raise NotImplementedError(
-            f"--mesh-data {n}: data parallelism is not ported yet "
-            "(the ROADMAP.md queue item \"Parallelism\")")
+def check_parallel_flags(args) -> None:
+    """Raise for ``--pipe`` or ``--seq`` above 1 (the transformer CLIs'):
+    pipeline and sequence parallelism are not ported yet."""
     for flag, what in (("pipe", "pipeline"), ("seq", "sequence")):
         n = getattr(args, flag, 1)
         if n > 1:
             raise NotImplementedError(
                 f"--{flag} {n}: {what} parallelism is not ported yet "
-                "(the ROADMAP.md queue item \"Parallelism\")")
-    return None
+                "(the ROADMAP.md queue item \"Parallelism\", 6b)")
+
+
+def ranks_to_start(args) -> int:
+    """N for ``--mesh-data N`` above 1 outside a process group (the ranks a
+    training CLI must start), else 0."""
+    import torch.distributed as dist
+
+    n = getattr(args, "mesh_data", 0)
+    return n if n > 1 and not (dist.is_available() and dist.is_initialized()) else 0
+
+
+def run_on_ranks(main, argv, args):
+    """``main(argv)`` on ``--mesh-data`` ranks (``parallel.launch``), each on
+    its mesh slot of ``--device``; -> rank 0's result."""
+    from captionax_torch.parallel.launch import launch
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return launch(main, args.mesh_data, (argv,), device=args.device)
+
+
+def resolve_mesh(args):
+    """The data-parallel mesh ``--mesh-data`` asks for (None for 0): the
+    ranks' mesh inside a process group, else a one-process mesh over N
+    slots of ``--device`` (a one-card machine repeats its card).  Raises for
+    ``--pipe`` / ``--seq`` above 1 (:func:`check_parallel_flags`)."""
+    check_parallel_flags(args)
+    n = getattr(args, "mesh_data", 0)
+    if not n:
+        return None
+    from captionax_torch.parallel.mesh import default_devices, make_mesh
+
+    # the slots run_on_ranks launched the ranks on
+    return make_mesh(n_data=n, devices=default_devices(n, args.device))
 
 
 def parse_configs(args):

@@ -6,6 +6,9 @@ port's format, ``train/checkpoint.py``), rebuild the encoder the training
 run drew, and beam-test each style.  Runs on the card unless
 ``--device cpu`` is given.
 
+``--mesh-data`` is accepted and ignored: this CLI runs on one device,
+as captionax's does.
+
     python -m captionax_torch.cli.evaluate --checkpoint-dir ckpts --kind hypernet \\
         --synthetic
 """
@@ -20,7 +23,6 @@ from captionax_torch.cli.common import (
     model_generators,
     parse_configs,
     resolve_flickr_data,
-    resolve_mesh,
     resolve_vocab,
 )
 from captionax_torch.core.runtime import resolve_device
@@ -38,7 +40,6 @@ def main(argv=None):
     parser.add_argument("--encoder-weights", type=str, default="")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    resolve_mesh(args)
     device = resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)

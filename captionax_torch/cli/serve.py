@@ -15,7 +15,13 @@ socket from one to the next without dropping a request
     curl -X POST --data-binary @dog.jpg -H 'Content-Type: image/jpeg' \\
         'http://localhost:8080/caption?style=humour'
 
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given.  ``--mesh-data N``
+shards each dispatch over N mesh slots of the device in one process (a
+one-card machine repeats its card): each shard runs the encoder (K4) and
+the decode on K1 (greedy: K2), as one device does.  Only ``--no-fused``
+decodes on the plain ``beam_search`` / ``greedy``.  (captionax's serve
+turns its fused decode off whenever a mesh is given; the port does not
+follow it there, since its kernels run on every shard.)
 """
 
 from __future__ import annotations
@@ -42,8 +48,8 @@ def build_service(args):
     from captionax_torch.train.checkpoint import restore_checkpoint
 
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    resolve_mesh(args)
-    device = resolve_device(args.device)
+    mesh = resolve_mesh(args)
+    device = mesh.data_devices[0] if mesh is not None else resolve_device(args.device)
     vocab = resolve_vocab(data_cfg)
     model_cfg.vocab_size = len(vocab)
     g_model, g_encoder = model_generators(train_cfg.seed)
@@ -61,8 +67,9 @@ def build_service(args):
         styles=args.styles.split(","),
         batch_size=args.window,
         max_steps=train_cfg.beam_max_steps,
-        use_fused=None if not args.no_fused else False,
+        use_fused=False if args.no_fused else None,
         decode=args.decode,
+        mesh=mesh,
         int8_encoder=args.int8_encoder,
         device=device,
     )

@@ -11,6 +11,9 @@ an ``embedding`` row is drawn fresh), and the histogram and JSD schemes
 take them at construction.  Runs on the card unless ``--device cpu`` is
 given.
 
+``--mesh-data`` is accepted and ignored: this CLI runs on one device,
+as captionax's does.
+
     python -m captionax_torch.cli.test_all --synthetic --checkpoint-dir ckpts
 """
 
@@ -26,7 +29,6 @@ from captionax_torch.cli.common import (
     model_generators,
     parse_configs,
     resolve_flickr_data,
-    resolve_mesh,
     resolve_vocab,
 )
 from captionax_torch.core.runtime import resolve_device
@@ -43,7 +45,6 @@ def main(argv=None):
     parser.add_argument("--encoder-weights", type=str, default="")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    resolve_mesh(args)
     device = resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)

@@ -12,6 +12,9 @@ the restore instead).  Images are made from their names with
 ``--synthetic``; otherwise the batches carry none, as in captionax.  Runs
 on the card unless ``--device cpu`` is given.
 
+``--mesh-data`` is accepted and ignored: this CLI runs on one device,
+as captionax's does.
+
     python -m captionax_torch.cli.test_zero_shot --synthetic \\
         --domain-scheme "histograme log" --checkpoint-dir ckpts \\
         --cc-oneshot-captions data/one_shot_captions.txt
@@ -28,7 +31,6 @@ from captionax_torch.cli.common import (
     make_parser,
     model_generators,
     parse_configs,
-    resolve_mesh,
     resolve_vocab,
 )
 from captionax_torch.core.runtime import resolve_device
@@ -43,7 +45,6 @@ def main(argv=None):
     parser.add_argument("--encoder-weights", type=str, default="")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    resolve_mesh(args)
     device = resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)

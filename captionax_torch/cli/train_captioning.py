@@ -24,6 +24,9 @@ place (``make_optimizer(donate=True)``): at the CLI defaults (E = H =
 200, V = 9684) the model has 3.657 B parameters, and the parameters, the
 gradients and Adam's two moments take 58.5 GB.
 
+``--mesh-data`` is accepted and ignored: this CLI runs on one device,
+as captionax's does.
+
     python -m captionax_torch.cli.train_captioning --synthetic --cell gru --device cpu
 """
 
@@ -39,7 +42,6 @@ from captionax_torch.cli.common import (
     model_generators,
     parse_configs,
     resolve_flickr_data,
-    resolve_mesh,
     resolve_vocab,
 )
 from captionax_torch.core.runtime import DeviceLike, resolve_device
@@ -140,7 +142,6 @@ def main(argv=None):
                              "(the reference passes no ignore_index)")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    resolve_mesh(args)
     device = resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)

@@ -9,8 +9,11 @@ on the card unless ``--device cpu`` is given.
 captionax's choices kept: the FFN width is 2048 whatever ``--hidden``;
 the epoch line prints the last step's loss, which raises when an epoch
 had no train batch.  ``--pipe`` and ``--pipe-micro`` are read as captionax
-reads them; ``--pipe`` above 1 raises: parallelism is the ``ROADMAP.md``
-queue item "Parallelism".
+reads them; ``--pipe`` above 1 raises: pipeline parallelism is the
+``ROADMAP.md`` queue item "Parallelism" (6b).
+
+``--mesh-data`` is accepted and ignored: this CLI runs on one device,
+as captionax's does.
 
     python -m captionax_torch.cli.train_catr --synthetic --max-epochs 2 \\
         --enc-layers 2 --dec-layers 2 --device cpu
@@ -22,13 +25,13 @@ import torch
 
 from captionax_torch.cli.common import (
     build_encoder,
+    check_parallel_flags,
     make_encoder,
     make_feature_fn,
     make_parser,
     model_generators,
     parse_configs,
     resolve_flickr_data,
-    resolve_mesh,
     resolve_vocab,
 )
 from captionax_torch.core.runtime import DeviceLike, resolve_device
@@ -78,7 +81,7 @@ def main(argv=None):
                         help="microbatches per step with --pipe")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    resolve_mesh(args)
+    check_parallel_flags(args)
     device = resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)

@@ -7,6 +7,10 @@ fetched per row in the loader's thread.  ``--fetch`` fetches over HTTP and
 needs network access; without it every image is a deterministic
 placeholder.  Runs on the card unless ``--device cpu`` is given.
 
+``--mesh-data N`` trains data parallel on N ranks, one process each
+(``parallel.launch``); rank 0 logs, writes the checkpoint and returns
+the history.
+
     python -m captionax_torch.cli.train_cc --gcc-tsv data/gcc.tsv --max-epochs 1
 """
 
@@ -19,8 +23,10 @@ from captionax_torch.cli.common import (
     make_parser,
     model_generators,
     parse_configs,
+    ranks_to_start,
     resolve_mesh,
     resolve_vocab,
+    run_on_ranks,
 )
 from captionax_torch.core.runtime import resolve_device
 from captionax_torch.data.cc_stream import (
@@ -41,9 +47,11 @@ def main(argv=None):
     parser.add_argument("--limit", type=int, default=5000)
     parser.add_argument("--encoder-weights", type=str, default="")
     args = parser.parse_args(argv)
+    if ranks_to_start(args):
+        return run_on_ranks(main, argv, args)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
     mesh = resolve_mesh(args)
-    device = resolve_device(args.device)
+    device = mesh.local_device if mesh is not None else resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)
     model_cfg.vocab_size = len(vocab)

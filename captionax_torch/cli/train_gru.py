@@ -5,6 +5,10 @@ train_attention_gru.py): fixed-style batches (default factual), CE loss,
 plateau LR, top-1 checkpoint, beam test.  Runs on the card unless
 ``--device cpu`` is given.
 
+``--mesh-data N`` trains data parallel on N ranks, one process each
+(``parallel.launch``); rank 0 logs, writes the checkpoint and returns
+the history.
+
     python -m captionax_torch.cli.train_gru --synthetic --max-epochs 2
 """
 
@@ -17,9 +21,11 @@ from captionax_torch.cli.common import (
     maybe_load_glove,
     model_generators,
     parse_configs,
+    ranks_to_start,
     resolve_flickr_data,
     resolve_mesh,
     resolve_vocab,
+    run_on_ranks,
 )
 from captionax_torch.core.runtime import resolve_device
 from captionax_torch.train.harness import CaptionTrainer
@@ -31,9 +37,11 @@ def main(argv=None):
                         choices=["factual", "humour", "romantic"])
     parser.add_argument("--encoder-weights", type=str, default="")
     args = parser.parse_args(argv)
+    if ranks_to_start(args):
+        return run_on_ranks(main, argv, args)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
     mesh = resolve_mesh(args)
-    device = resolve_device(args.device)
+    device = mesh.local_device if mesh is not None else resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)
     model_cfg.vocab_size = len(vocab)

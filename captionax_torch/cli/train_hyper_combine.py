@@ -22,6 +22,11 @@ captionax's extensions beyond the reference recipe:
   ``{'hn': ...}`` (numpy arrays) or from a port checkpoint directory
   (``cli/train_init`` writes one).
 
+``--mesh-data N`` trains data parallel on N ranks, one process each
+(``parallel.launch``); rank 0 logs, writes the checkpoint and returns
+the history, and with ``--select-sep-margin`` reads the selected
+checkpoint and broadcasts it to the other ranks for the test.
+
     python -m captionax_torch.cli.train_hyper_combine --synthetic \\
         --domain-scheme "one hot" --max-epochs 2
 """
@@ -41,9 +46,11 @@ from captionax_torch.cli.common import (
     maybe_load_glove,
     model_generators,
     parse_configs,
+    ranks_to_start,
     resolve_flickr_data,
     resolve_mesh,
     resolve_vocab,
+    run_on_ranks,
 )
 from captionax_torch.core.runtime import resolve_device
 from captionax_torch.data.cc import ConceptualCaptionsData, domain_list, load_cc_captions
@@ -112,9 +119,11 @@ def main(argv=None):
                              "selection monitor (plus f/h/r)")
     parser.add_argument("--sep-max-steps", type=int, default=20)
     args = parser.parse_args(argv)
+    if ranks_to_start(args):
+        return run_on_ranks(main, argv, args)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
     mesh = resolve_mesh(args)
-    device = resolve_device(args.device)
+    device = mesh.local_device if mesh is not None else resolve_device(args.device)
     if train_cfg.style_aux:
         # the combined model's aux class is carried by the batch (4 classes)
         train_cfg.style_aux_from_batch = True
@@ -218,8 +227,7 @@ def main(argv=None):
     )
     if args.select_sep_margin:
         # test the SELECTED checkpoint, not the last epoch's params
-        best = restore_checkpoint(train_cfg.checkpoint_dir, like=trainer.state.params)
-        trainer.state = trainer.state._replace(params=best)
+        trainer.restore_params(train_cfg.checkpoint_dir)
         print(f"selected checkpoint val_sep_margin={-trainer.checkpointer.best:.4f}")
     res = trainer.test_beam(
         attach_probe_cls(attach_domain_values(

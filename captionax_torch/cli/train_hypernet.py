@@ -9,6 +9,10 @@ per style.  Runs on the card unless ``--device cpu`` is given;
 ``--style-classifier`` names (a pickle of numpy arrays, as
 ``cli/train_classifier --save`` writes it in either package).
 
+``--mesh-data N`` trains data parallel on N ranks, one process each
+(``parallel.launch``); rank 0 logs, writes the checkpoint and returns
+the history.
+
     python -m captionax_torch.cli.train_hypernet --synthetic --max-epochs 2
 """
 
@@ -23,9 +27,11 @@ from captionax_torch.cli.common import (
     maybe_load_glove,
     model_generators,
     parse_configs,
+    ranks_to_start,
     resolve_flickr_data,
     resolve_mesh,
     resolve_vocab,
+    run_on_ranks,
 )
 from captionax_torch.core.runtime import resolve_device
 from captionax_torch.interop import from_jax_params
@@ -47,9 +53,11 @@ def main(argv=None):
                              "a port checkpoint directory (the reference's "
                              "pretrain-then-finetune flow)")
     args = parser.parse_args(argv)
+    if ranks_to_start(args):
+        return run_on_ranks(main, argv, args)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
     mesh = resolve_mesh(args)
-    device = resolve_device(args.device)
+    device = mesh.local_device if mesh is not None else resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)
     model_cfg.vocab_size = len(vocab)

@@ -12,8 +12,11 @@ from a generator on the run's device seeded with ``s``, and every
 validation batch with the draws of seed 0 (captionax draws them from
 ``PRNGKey(s)`` and ``PRNGKey(0)``).  ``--pipe``, ``--pipe-micro``,
 ``--seq`` and ``--seq-ring`` are read as captionax reads them; ``--pipe``
-or ``--seq`` above 1 raises: parallelism is the ``ROADMAP.md`` queue item
-"Parallelism".
+or ``--seq`` above 1 raises: pipeline and sequence parallelism are the ``ROADMAP.md`` queue
+item "Parallelism" (6b).
+
+``--mesh-data`` is accepted and ignored: this CLI runs on one device,
+as captionax's does.
 
     python -m captionax_torch.cli.train_labert --synthetic --max-epochs 2 \\
         --hidden 128 --bert-layers 2 --device cpu
@@ -26,13 +29,13 @@ import torch
 
 from captionax_torch.cli.common import (
     build_encoder,
+    check_parallel_flags,
     make_encoder,
     make_feature_fn,
     make_parser,
     model_generators,
     parse_configs,
     resolve_flickr_data,
-    resolve_mesh,
     resolve_vocab,
 )
 from captionax_torch.core.runtime import DeviceLike, resolve_device
@@ -114,7 +117,7 @@ def main(argv=None):
                         help="with --seq: the ring-attention schedule")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    resolve_mesh(args)
+    check_parallel_flags(args)
     device = resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)

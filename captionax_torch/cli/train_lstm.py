@@ -17,6 +17,9 @@ metrics for every variant, plus the greedy decode's metrics for
 K4; ``--cache-features`` / ``--cache-features-device`` encode each image
 once.  Runs on the card unless ``--device cpu`` is given.
 
+``--mesh-data`` is accepted and ignored: this CLI runs on one device,
+as captionax's does.
+
     python -m captionax_torch.cli.train_lstm --variant attention --synthetic --device cpu
 """
 
@@ -32,7 +35,6 @@ from captionax_torch.cli.common import (
     model_generators,
     parse_configs,
     resolve_flickr_data,
-    resolve_mesh,
     resolve_vocab,
 )
 from captionax_torch.core.runtime import resolve_device
@@ -112,7 +114,6 @@ def main(argv=None):
     parser.add_argument("--encoder-weights", type=str, default="")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    resolve_mesh(args)
     device = resolve_device(args.device)
 
     vocab = resolve_vocab(data_cfg)

@@ -9,8 +9,17 @@ the batch.  Each batch gets its own pinned buffers, held until the next
 batch is taken (PyTorch's pinned-memory allocator also keeps a freed
 buffer until the copy's event has passed), so no buffer is reused before
 its copy lands.  An exception raised while a batch is built
-is raised again in the consumer.  There is no ``mesh`` argument: the
-port's data parallelism is not ported yet.
+is raised again in the consumer.
+
+With a ``mesh`` of ranks (``parallel/mesh.py``) each rank keeps its shard
+of every batch: the rows ``mesh.shard_rows`` gives it of every array
+with a leading axis (the host keys too, such as ``images`` and
+``indices``, so a rank's feature cache encodes its own shard), and places
+its slice of every ``device_keys`` array on its device.  Scalars and the
+``replicated_keys`` (per-batch values such as ``style_id`` and the domain
+vector ``domain_value``) stay whole on every rank.  ``even`` requires
+every batch to divide by the data axis (training); without it the tail
+batch of an evaluation splits unevenly.
 """
 
 from __future__ import annotations
@@ -23,6 +32,9 @@ import numpy as np
 import torch
 
 from captionax_torch.core.runtime import DeviceLike, resolve_device
+from captionax_torch.parallel.mesh import shard_rows
+
+REPLICATED_KEYS = ("style_id", "domain_value", "probe_cls")
 
 
 class BatchLoader:
@@ -36,8 +48,18 @@ class BatchLoader:
         device: DeviceLike = None,
         prefetch: int = 2,
         device_keys: Optional[tuple] = ("images", "captions", "features"),
+        mesh=None,
+        replicated_keys: tuple = REPLICATED_KEYS,
+        even: bool = True,
     ):
+        if mesh is not None:
+            if mesh.group is None and mesh.n_data > 1:
+                raise ValueError("BatchLoader(mesh=...) places a rank's shard: a mesh of "
+                                 "several devices in one process has no rank")
+            device = mesh.local_device
         self.batches = batches
+        self.mesh = mesh
+        self.replicated_keys, self.even = replicated_keys, even
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the worker thread selects the device by index
@@ -50,6 +72,9 @@ class BatchLoader:
         the pinned host buffers that must outlive the copies)."""
         out, pinned = {}, []
         cuda = self.device.type == "cuda"
+        if self.mesh is not None:
+            batch = shard_rows(batch, self.mesh, replicated_keys=self.replicated_keys,
+                               even=self.even)
         for k, v in batch.items():
             if not (self.device_keys and k in self.device_keys):
                 out[k] = v

@@ -1,8 +1,8 @@
-"""Online caption service: images in, styled captions out, on one card.
+"""Online caption service: images in, styled captions out.
 
 Port of ``CaptionService``, ``make_http_server`` and ``serve_background``
-from ``captionax/decode/service.py`` (without ``mesh``).  Every concurrent
-request goes through one
+from ``captionax/decode/service.py``.  Every concurrent request goes
+through one
 :class:`captionax_torch.decode.serving.MicroBatcher`: requests that arrive
 while a batch is in flight coalesce into the next fixed-shape batch of
 ``batch_size`` uint8 images.  One dispatch per batch copies the images to
@@ -15,6 +15,14 @@ request's row picks its style from a hypernet theta bank synthesized once,
 when the service is built.  ``use_fused`` (default: on the card) decodes on
 the K1 beam kernels, or K2 with ``decode="greedy"``; otherwise, as on the
 CPU, on the plain ``beam_search`` / ``greedy`` with one theta per row.
+
+``mesh`` (a one-process mesh, ``parallel/mesh.py``) shards each dispatch
+over its ``data`` axis: shard r of the batch (``batch_size`` must divide
+by the axis) goes image -> encoder (K4) -> decode on device r and a CUDA
+stream of its own, every device holding a copy of the weights and the
+theta bank, and the shards' tokens are joined in order on the first
+shard's device.  Without a mesh the same dispatch runs over one slot
+(``serving.MeshShards``).
 """
 
 from __future__ import annotations
@@ -28,10 +36,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from captionax_torch.core.runtime import DeviceLike, resolve_device
+from captionax_torch.core.runtime import DeviceLike
 from captionax_torch.data.transforms import preprocess_images
 from captionax_torch.decode.search import beam_search, greedy
-from captionax_torch.decode.serving import MicroBatcher, pack_beam_result, unpack_beam_result
+from captionax_torch.decode.serving import (
+    MeshShards,
+    MicroBatcher,
+    pack_beam_result,
+    unpack_beam_result,
+)
 from captionax_torch.eval.metrics import ids_to_text
 from captionax_torch.interop import to_device
 from captionax_torch.models.encoder import (
@@ -75,7 +88,7 @@ class CaptionService:
     activation scales calibrated when the service is built on
     ``int8_calibration`` (uint8 images [N, S, S, 3]; default: 8 images of
     random pixels from ``RandomState(0)``), times 1.5 as a margin.
-    ``device=None`` means the card.
+    ``device=None`` means the card; a ``mesh`` of devices takes its place.
     """
 
     def __init__(
@@ -90,13 +103,18 @@ class CaptionService:
         image_size: int = 224,
         use_fused: Optional[bool] = None,
         decode: str = "beam",
+        mesh=None,
         int8_encoder: bool = False,
         int8_calibration=None,
         device: DeviceLike = None,
     ):
         if decode not in ("beam", "greedy"):
             raise ValueError(f"decode must be beam|greedy, got {decode!r}")
-        dev = resolve_device(device)
+        if mesh is not None and batch_size % mesh.n_data:
+            raise ValueError(f"batch_size {batch_size} must divide by the mesh data axis "
+                             f"({mesh.n_data})")
+        shards = MeshShards(mesh, device)  # one slot on ``device`` without a mesh
+        dev = shards.devices[0]
         self.vocab = vocab
         self.styles = list(styles)
         self.decode = decode
@@ -114,34 +132,54 @@ class CaptionService:
                                device=dev)
             with torch.no_grad():
                 bank = synthesize_theta_batched(params, style_table(params)[ids])
-        if int8_encoder:
-            self.encoder = _int8_encoder(encoder_params, int8_calibration, image_size, dev)
-        else:
-            self.encoder = CNNEncoder(encoder_params, torch.bfloat16, dev)
+        def pipeline(d: torch.device):
+            """-> (the encoder on ``d``, uint8 images and style rows on ``d``
+            -> tokens on ``d``)."""
+            if int8_encoder:
+                encoder = _int8_encoder(encoder_params, int8_calibration, image_size, d)
+            else:
+                encoder = CNNEncoder(encoder_params, torch.bfloat16, d)
+            dp = to_device(decoder, d)
+            th = None if bank is None else to_device(bank, d)
+            if use_fused:
+                cls = GreedyDecoder if decode == "greedy" else BeamDecoder
+                steps = {"max_len": max_steps} if decode == "greedy" else {"max_steps": max_steps}
+                fused = cls(dp, th, device=d, **steps)
 
-        if use_fused:
-            cls = GreedyDecoder if decode == "greedy" else BeamDecoder
-            steps = {"max_len": max_steps} if decode == "greedy" else {"max_steps": max_steps}
-            fused = cls(decoder, bank, device=dev, **steps)
+                def decode_tokens(feats, rows):
+                    res = fused(feats, rows if th is not None else None)
+                    return res if decode == "greedy" else pack_beam_result(res)
+            else:
+                def decode_tokens(feats, rows):
+                    # the plain decoders take one theta per row, not a bank
+                    theta = None if th is None else {k: t[rows.long()] for k, t in th.items()}
+                    if decode == "greedy":
+                        return greedy(dp, feats, max_len=max_steps, gru_params=theta, device=d)
+                    return pack_beam_result(beam_search(dp, feats, max_steps=max_steps,
+                                                        gru_params=theta, device=d))
 
-            def decode_tokens(feats, rows):
-                res = fused(feats, rows if bank is not None else None)
-                return res if decode == "greedy" else pack_beam_result(res)
-        else:
-            def decode_tokens(feats, rows):
-                # the plain decoders take one theta per row, not a bank
-                theta = None if bank is None else {k: t[rows.long()] for k, t in bank.items()}
-                if decode == "greedy":
-                    return greedy(decoder, feats, max_len=max_steps, gru_params=theta,
-                                  device=dev)
-                return pack_beam_result(beam_search(decoder, feats, max_steps=max_steps,
-                                                    gru_params=theta, device=dev))
+            def run(images, rows):
+                return decode_tokens(encoder(preprocess_images(images)), rows)
+
+            return encoder, run
+
+        # one pipeline per distinct device: shards on one card share it
+        runs = {}
+        for d in shards.devices:
+            if d not in runs:
+                runs[d] = pipeline(d)
+        self.encoder = runs[dev][0]
 
         def dispatch(imgs: np.ndarray, rows: np.ndarray):
+            """-> the batch's tokens on the first shard's device, which the
+            MicroBatcher copies to the host."""
+            def shard(r, a, b):
+                d = shards.devices[r]
+                return runs[d][1](torch.from_numpy(imgs[a:b]).to(d),
+                                  torch.from_numpy(rows[a:b]).to(d))
+
             with torch.no_grad():
-                images = torch.from_numpy(imgs).to(dev)
-                feats = self.encoder(preprocess_images(images))
-                return decode_tokens(feats, torch.from_numpy(rows).to(dev))
+                return shards.join(shards.run(len(imgs), shard), dev)
 
         self._batcher = MicroBatcher(
             dispatch,

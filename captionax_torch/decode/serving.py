@@ -1,7 +1,8 @@
 """Batch serving for the fused beam and greedy decodes.
 
-Port of ``captionax/decode/serving.py``: the beam server (K1) and the greedy
-server (K2).  :class:`PipelinedDecoder` keeps batches in
+Port of ``captionax/decode/serving.py``: the beam server (K1), the greedy
+server (K2) and the beam decode sharded over a mesh's ``data`` axis
+(:func:`make_sharded_beam_decode`, K1 on each shard).  :class:`PipelinedDecoder` keeps batches in
 flight: each batch's kernels are queued on the current CUDA stream, its
 result is copied without blocking into pinned host memory, and a CUDA
 event per batch marks when that copy is done, so the host only waits on
@@ -23,6 +24,7 @@ import torch
 from captionax_torch.core.runtime import DeviceLike, resolve_device
 from captionax_torch.decode.search import BeamResult
 from captionax_torch.ops.decode_kernel import K, BeamDecoder, GreedyDecoder
+from captionax_torch.parallel.mesh import shard_bounds
 
 
 def _map_result(fn, res):
@@ -235,3 +237,100 @@ def make_greedy_server(
         return decoder(f, rows)
 
     return PipelinedDecoder(decode)
+
+
+class MeshShards:
+    """The data shards of a one-process mesh (``parallel/mesh.py``), or one
+    slot on ``device`` without a mesh: each shard's device and, where there
+    are several shards on cards, a CUDA stream of its own, so shards that
+    share a card run side by side.  Decoding has no communication between
+    shards: each runs the whole decode on its rows."""
+
+    def __init__(self, mesh=None, device: DeviceLike = None):
+        if mesh is None:
+            self.devices = [resolve_device(device)]
+        elif mesh.spans_processes:
+            raise ValueError("serving runs one process over the mesh's devices; this mesh "
+                             "spans processes")
+        else:
+            self.devices = mesh.data_devices
+        several = len(self.devices) > 1
+        self.streams = [torch.cuda.Stream(d) if several and d.type == "cuda" else None
+                        for d in self.devices]
+
+    def run(self, rows: int, fn: Callable) -> list:
+        """``fn(r, start, stop)`` for each shard r of ``rows`` rows (which
+        must divide by the shards), on its device and stream after the work
+        queued so far on that device; -> the results in shard order."""
+        out = []
+        for r, ((a, b), dev, stream) in enumerate(zip(shard_bounds(rows, len(self.devices)),
+                                                       self.devices, self.streams)):
+            if stream is None:
+                out.append(fn(r, a, b))
+                continue
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                out.append(fn(r, a, b))
+        return out
+
+    def join(self, results: list, device) -> object:
+        """The shards' results (tensors, or tuples of them) concatenated in
+        shard order on ``device``, behind each shard's stream."""
+        if len(results) == 1:
+            return results[0]
+        for res, dev, stream in zip(results, self.devices, self.streams):
+            if stream is not None:
+                current = torch.cuda.current_stream(dev)
+                current.wait_stream(stream)
+                for t in (res if isinstance(res, tuple) else (res,)):
+                    t.record_stream(current)
+        first = results[0]
+        if isinstance(first, tuple):
+            return type(first)(*(torch.cat([r[i].to(device) for r in results])
+                                 for i in range(len(first))))
+        return torch.cat([r.to(device) for r in results])
+
+
+def make_sharded_beam_decode(
+    mesh,
+    decoder_params,
+    gru_params=None,
+    max_steps: int = 50,
+    block_images=None,
+    f32: bool = False,
+    packed: bool = False,
+) -> Callable:
+    """The beam decode over a one-process mesh's ``data`` axis: K1 on each
+    shard (captionax's ``shard_map`` of its fused kernel).
+
+    Returns ``decode(features [B, R, NF], style_rows=None)``: shard r takes
+    rows ``[r*B/n, (r+1)*B/n)`` (B must divide by the data axis: pad a tail
+    batch with zero rows and drop them after) and decodes them on its
+    device and stream; the results come back concatenated in shard order
+    on the first shard's device, a BeamResult or, with ``packed=True``, one
+    int32 tensor (:func:`pack_beam_result`; wrap the decode in
+    :class:`PipelinedDecoder` to stream batches).  The weights and the
+    theta are packed once per device.  A theta bank (a leading style axis)
+    takes ``style_rows`` [B], sharded with the batch.  ``block_images`` and
+    ``f32`` as :class:`BeamDecoder` takes them."""
+    shards = MeshShards(mesh)
+    decoders: dict = {}
+    for d in shards.devices:
+        if d not in decoders:
+            decoders[d] = BeamDecoder(decoder_params, gru_params, max_steps=max_steps,
+                                      f32=f32, block_images=block_images, device=d)
+    multi = decoders[shards.devices[0]].multi
+
+    def decode(features, style_rows=None):
+        if multi and style_rows is None:
+            raise ValueError("gru_params has a leading style axis; pass style_rows [B]")
+        feats = torch.as_tensor(features)
+        rows = None if style_rows is None else torch.as_tensor(style_rows)
+
+        def shard(r, a, b):
+            res = decoders[shards.devices[r]](feats[a:b], None if rows is None else rows[a:b])
+            return pack_beam_result(res) if packed else res
+
+        return shards.join(shards.run(len(feats), shard), shards.devices[0])
+
+    return decode

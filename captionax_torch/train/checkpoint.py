@@ -168,16 +168,20 @@ def graft_pretrained_captioner(model_params, captioner_params):
 
 
 class BestCheckpointer:
-    """ModelCheckpoint(save_top_k=1, monitor=min) equivalent."""
+    """ModelCheckpoint(save_top_k=1, monitor=min) equivalent.  With
+    ``write=False`` it keeps the best metric and takes the same decisions
+    but writes nothing (a data-parallel rank other than 0)."""
 
-    def __init__(self, directory: str, max_to_keep: int = 1):
+    def __init__(self, directory: str, max_to_keep: int = 1, write: bool = True):
         self.directory = directory
         self.best: Optional[float] = None
         self.max_to_keep = max_to_keep
+        self.write = write
 
     def maybe_save(self, metric: float, step: int, tree: Any) -> bool:
         if self.best is None or metric < self.best:
             self.best = metric
-            save_checkpoint(self.directory, step, tree, self.max_to_keep)
+            if self.write:
+                save_checkpoint(self.directory, step, tree, self.max_to_keep)
             return True
         return False

@@ -35,8 +35,22 @@ step (:func:`step_generator`), where captionax folds the step into
 step did not make (the first step, a resume, the state ``lr_find``
 restores), so the host never waits for a step to finish to draw the next.
 
-Not ported yet: ``mesh`` (data parallelism, the ``ROADMAP.md`` queue item
-"Parallelism"); it raises ``NotImplementedError``.
+``mesh`` (data parallelism, ``parallel/mesh.py``) is a mesh of ranks,
+one process each (``parallel.launch``): rank 0's parameters are broadcast
+to every rank, each rank's ``BatchLoader`` keeps its shard of every batch
+(its ``FeatureCache`` encodes its own shard's images), and the train step
+is ``jit_data_parallel``'s (losses over the whole batch, gradients summed
+over the ranks before the optimizer: the replicas stay bit-equal).
+Validation and ``test_beam`` run over the whole set, each rank on its
+shard of every batch (the tail batch split unevenly); the losses are
+reduced over the ranks as sums of each shard's loss times its token count
+over the batch's count, and the ids the quality metrics read are gathered
+in shard order, so every rank computes the same metrics, and the plateau
+LR and the checkpoint choice decide alike everywhere.  Only rank 0 logs
+and writes checkpoints; the other ranks wait at a barrier until a
+checkpoint is written, and :meth:`CaptionTrainer.restore_params` reads one
+on rank 0 and broadcasts it.  The split variants of mixup and style-aux raise
+with a mesh, as captionax's do.
 """
 
 from __future__ import annotations
@@ -47,17 +61,19 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from captionax_torch.core.config import TrainConfig
 from captionax_torch.core.runtime import DeviceLike, host_rss_mb, resolve_device
-from captionax_torch.data.loader import BatchLoader
+from captionax_torch.data.loader import REPLICATED_KEYS, BatchLoader
 from captionax_torch.data.transforms import preprocess_images
 from captionax_torch.decode.search import beam_search
 from captionax_torch.eval.metrics import CaptionMetrics, metric_score_test
 from captionax_torch.models.encoder import CNNEncoder
 from captionax_torch.models.hypernet import hypernet_apply
 from captionax_torch.train.checkpoint import BestCheckpointer, latest_step, restore_checkpoint
-from captionax_torch.train.logging import MetricLogger
+from captionax_torch.parallel.mesh import gather_rows, replicate_params
+from captionax_torch.train.logging import MetricLogger, NullLogger
 from captionax_torch.train.state import (
     PlateauScheduler,
     create_train_state,
@@ -71,6 +87,7 @@ from captionax_torch.train.steps import (
     make_hypernet_mixup_steps,
     make_hypernet_steps,
     make_hypernet_styleaux_steps,
+    jit_data_parallel,
     style_token_embed,
 )
 
@@ -212,17 +229,18 @@ class CaptionTrainer:
                                  or (config.style_aux and config.style_aux_split)):
             raise ValueError("mixup_split / style_aux_split are single-device; "
                              "drop the split or the mesh")
-        if mesh is not None:
-            raise NotImplementedError(
-                "CaptionTrainer(mesh=...): data parallelism is not ported yet "
-                "(the ROADMAP.md queue item \"Parallelism\")")
         self.config = config
         self.vocab = vocab
         self.kind = kind
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.local_device if mesh is not None else resolve_device(device)
+        self.rank0 = mesh is None or mesh.rank == 0
         self.encoder_params = encoder_params
-        self.logger = logger or MetricLogger(config.checkpoint_dir, run_name)
+        self.logger = logger or (MetricLogger(config.checkpoint_dir, run_name) if self.rank0
+                                 else NullLogger())
         self.tx = make_optimizer(config.lr, config.grad_clip)
+        if mesh is not None and mesh.spans_processes:
+            params = replicate_params(mesh, params)
         self.state = create_train_state(params, self.tx, device=self.device)
         self._embed_fn = embed_fn
         self.style_step = None  # the mixup / style-aux step, when one is set
@@ -242,7 +260,7 @@ class CaptionTrainer:
                 self.tx, config, params, embed_fn, style_classifier_params)
             if style_step is not None:
                 train_step = DrawingStep(style_step, config.seed)
-        self._train_step = train_step
+        self._train_step = train_step if mesh is None else jit_data_parallel(train_step, mesh)
         self._eval_step = eval_step
         self._encoder: Optional[CNNEncoder] = None  # made at the first encode
         self.scheduler = PlateauScheduler(
@@ -250,7 +268,7 @@ class CaptionTrainer:
             patience=config.plateau_patience,
             cooldown=config.plateau_cooldown,
         )
-        self.checkpointer = BestCheckpointer(config.checkpoint_dir)
+        self.checkpointer = BestCheckpointer(config.checkpoint_dir, write=self.rank0)
         self.feature_cache = (
             FeatureCache(self._encode, encoder_params,
                          device=config.cache_features_device)
@@ -273,19 +291,31 @@ class CaptionTrainer:
         step = latest_step(directory)
         if step is None:
             return False
-        params = restore_checkpoint(directory, like=self.state.params)
-        self.state = self.state._replace(params=params)
+        self.restore_params(directory)
         self.global_step = int(step)
         self.logger.log({"resumed_from_step": float(step)})
         return True
 
+    def restore_params(self, directory: Optional[str] = None) -> None:
+        """Take the parameters of the latest checkpoint in ``directory``
+        (default: the run's).  With a mesh of ranks rank 0 reads them and
+        broadcasts them, so every replica holds rank 0's."""
+        directory = directory or self.config.checkpoint_dir
+        params = (restore_checkpoint(directory, like=self.state.params) if self.rank0
+                  else self.state.params)
+        if self.mesh is not None and self.mesh.spans_processes:
+            params = replicate_params(self.mesh, params)
+        self.state = self.state._replace(params=params)
+
     # -- plumbing -------------------------------------------------------
-    def _loader(self, batches) -> BatchLoader:
+    def _loader(self, batches, even: bool = True,
+                replicated_keys: tuple = REPLICATED_KEYS) -> BatchLoader:
         # with an active feature cache, images stay on the host (a warm
         # cache never reads them)
         keys = (DEVICE_BATCH_KEYS if self.feature_cache is not None
                 else ("images", "captions", "features"))
-        return BatchLoader(batches, device=self.device, device_keys=keys)
+        return BatchLoader(batches, device=self.device, device_keys=keys, mesh=self.mesh,
+                           even=even, replicated_keys=replicated_keys)
 
     def _featurize(self, batch: Dict) -> Dict:
         if "features" not in batch and "images" in batch:
@@ -448,15 +478,47 @@ class CaptionTrainer:
                 epoch_metrics.update(epoch_end_metrics(self.params))
             monitored = epoch_metrics.get(cfg.select_metric)
             if monitored is not None:
-                # BestCheckpointer is min-based; negate for mode="max"
+                # BestCheckpointer is min-based; negate for mode="max".  Every
+                # rank takes the same decision on the same metrics; rank 0
+                # writes, and the others wait until the checkpoint is whole
                 self.checkpointer.maybe_save(
                     float(monitored) if cfg.select_mode == "min"
                     else -float(monitored),
                     self.global_step, self.state.params,
                 )
+                if self.mesh is not None and self.mesh.spans_processes:
+                    dist.barrier(group=self.mesh.group)
             self.logger.log(epoch_metrics, step=self.global_step)
             history[epoch] = epoch_metrics
         return history
+
+    def _eval_shard(self, batch: Dict):
+        """(features and captions of this rank's shard, the eval step's
+        output or None for an empty shard)."""
+        if len(batch["captions"]) == 0:
+            return {k: v for k, v in batch.items() if k in DEVICE_BATCH_KEYS}, None
+        db = self._featurize(batch)
+        return db, self._eval_step(self.params, db)
+
+    def _gathered(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        """The whole batch of a per-row result (this rank's shard alone
+        without a mesh of ranks)."""
+        if self.mesh is None or not self.mesh.spans_processes:
+            return x
+        return gather_rows(x, rows, self.mesh)
+
+    def _batch_losses(self, losses) -> list:
+        """[(val_loss_tf, val_loss)] per batch: without a mesh the eval
+        step's own; with one, each rank's (loss x tokens) summed over the
+        ranks and divided by the batch's tokens."""
+        if self.mesh is None or not self.mesh.spans_processes:
+            return [(a, b) for a, b, _ in losses]
+        if not losses:
+            return []
+        sums = torch.stack([torch.stack([a * c, b * c, c]) for a, b, c in losses])
+        dist.all_reduce(sums, group=self.mesh.group)
+        return [(a / torch.clamp(c, min=1.0), b / torch.clamp(c, min=1.0))
+                for a, b, c in sums.unbind()]
 
     def validate(self, batches: Iterable[Dict],
                  with_quality_metrics: bool = True) -> Dict:
@@ -465,13 +527,22 @@ class CaptionTrainer:
         # loss scalars stay on the device until the loop ends (the
         # training loop's deferred fetch)
         losses = []
-        for batch in self._loader(batches):
-            db = self._featurize(batch)
-            out = self._eval_step(self.params, db)
-            losses.append((out["val_loss_tf"], out["val_loss"]))
+        zero = torch.zeros((), device=self.device)
+        for batch in self._loader(_with_rows(batches), even=False):
+            db, out = self._eval_shard(batch)
+            if out is None:
+                losses.append((zero, zero, zero))
+            else:
+                count = (db["captions"] != 0).sum().float()
+                losses.append((out["val_loss_tf"], out["val_loss"], count))
             if quality is not None:
-                quality.add_batch_logits(db["captions"], out["logits_tf"])
+                ids = (torch.zeros(db["captions"].shape, dtype=torch.int64, device=self.device)
+                       if out is None else out["logits_tf"].argmax(dim=-1))
+                rows = batch["batch_rows"]
+                quality.add_batch_ids(self._gathered(db["captions"], rows),
+                                      self._gathered(ids, rows))
             n += 1
+        losses = self._batch_losses(losses)
         sums: Dict[str, float] = {
             "val_loss_tf": sum(float(a) for a, _ in losses),
             "val_loss": sum(float(b) for _, b in losses),
@@ -498,6 +569,7 @@ class CaptionTrainer:
         def process(fetched, caps):
             nonlocal n_scored
             found, toks, tf_ids = _wait_host(fetched)
+            found = found.astype(bool)
             for i in range(len(found)):
                 if not found[i]:
                     continue
@@ -509,7 +581,7 @@ class CaptionTrainer:
             tf_quality.add_batch_ids(caps, tf_ids)
 
         def with_host_captions(bs):
-            for b in bs:
+            for b in _with_rows(bs):
                 yield {**b, "host_captions": np.asarray(b["captions"])}
 
         # one-deep pipelining: queue batch i+1's decode on the card before
@@ -518,22 +590,32 @@ class CaptionTrainer:
         # by their event alone, so the card decodes batch i+1 meanwhile
         pending = None
         with torch.no_grad():
-            for batch in self._loader(with_host_captions(batches)):
+            for batch in self._loader(with_host_captions(batches), even=False,
+                                      replicated_keys=REPLICATED_KEYS + ("host_captions",)):
                 caps = batch["host_captions"]
-                db = self._featurize(batch)
-                if self.kind == "gru":
-                    decoder, theta = self.params, None
+                db, out = self._eval_shard(batch)
+                if out is None:  # an empty shard of a tail batch
+                    found = torch.zeros((0,), dtype=torch.int32, device=self.device)
+                    toks = torch.zeros((0, cfg.beam_max_steps + 1), dtype=torch.int32,
+                                       device=self.device)
+                    tf_ids = torch.zeros((0,) + tuple(db["captions"].shape[1:]),
+                                         dtype=torch.int64, device=self.device)
                 else:
-                    decoder = self.params["decoder"]
-                    theta = hypernet_apply(
-                        self.params["hn"], self._embed_fn(self.params, db)
-                    )
-                res = beam_search(decoder, db["features"], k=cfg.beam_size,
-                                  max_steps=cfg.beam_max_steps, gru_params=theta,
-                                  device=self.device)
-                out = self._eval_step(self.params, db)
-                fetched = _to_host_async(
-                    (res.found, res.tokens, out["logits_tf"].argmax(dim=-1)))
+                    if self.kind == "gru":
+                        decoder, theta = self.params, None
+                    else:
+                        decoder = self.params["decoder"]
+                        theta = hypernet_apply(
+                            self.params["hn"], self._embed_fn(self.params, db)
+                        )
+                    res = beam_search(decoder, db["features"], k=cfg.beam_size,
+                                      max_steps=cfg.beam_max_steps, gru_params=theta,
+                                      device=self.device)
+                    found, toks = res.found.to(torch.int32), res.tokens
+                    tf_ids = out["logits_tf"].argmax(dim=-1)
+                rows = batch["batch_rows"]
+                fetched = _to_host_async(tuple(
+                    self._gathered(x, rows) for x in (found, toks, tf_ids)))
                 if pending is not None:
                     process(*pending)
                 pending = (fetched, caps)
@@ -546,6 +628,13 @@ class CaptionTrainer:
         )
         result["beam_completed"] = n_scored
         return result
+
+
+def _with_rows(batches):
+    """Each batch with its row count, ``batch_rows``: a rank's shard of it
+    needs the whole batch's to gather its rows."""
+    for b in batches:
+        yield {**b, "batch_rows": len(b["captions"])}
 
 
 def _to_host_async(tensors):

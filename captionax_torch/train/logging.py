@@ -66,3 +66,16 @@ class MetricLogger:
         self._fh.close()
         if self._wandb is not None:
             self._wandb.finish()
+
+
+class NullLogger:
+    """A logger that writes nothing: the ranks of a data-parallel run other
+    than rank 0, which logs for all."""
+
+    path = None
+
+    def log(self, metrics: Dict, step: Optional[int] = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -7,6 +7,14 @@ ignore_index=<pad>)``: the mean over non-pad positions.
 row chunks, without building the [B*T, V] logits.
 ``label_smoothing_loss`` is the LaBERT baseline's LabelSmoothingLoss.
 
+Each loss is a mean over the whole batch's tokens.  Inside a data-parallel
+step (``parallel/mesh.py``'s ``data_parallel``) a rank holds a shard of the
+batch, and its loss divides its own sum by the count of every rank's
+tokens (``global_sum``): the ranks' losses then sum to the whole batch's,
+and their gradients, summed, to its gradient, whatever the number of
+non-pad tokens in each shard.  Outside such a step ``global_sum`` is the
+identity.
+
 The vocab product of the fused loss is one large matrix product, which the
 JAX package leaves to XLA; here it is ``torch.matmul`` in f32 (from the
 bf16 values under bf16 compute), as ``preferred_element_type=float32``
@@ -21,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from captionax_torch.parallel.mesh import global_mean, global_sum
+
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
                        pad_id: Optional[int] = 0) -> torch.Tensor:
@@ -30,9 +40,9 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
     if pad_id is None:
-        return nll.mean()
+        return global_mean(nll)
     mask = (targets != pad_id).to(nll.dtype)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(global_sum(mask.sum()), min=1.0)
     return (nll * mask).sum() / denom
 
 
@@ -73,7 +83,7 @@ def fused_ce_from_hidden(fc: dict, hs: torch.Tensor, targets: torch.Tensor,
             s, m = _chunk_ce(*args)
         num = num + s
         den = den + m
-    return num / torch.clamp(den, min=1.0)
+    return num / torch.clamp(global_sum(den), min=1.0)
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -87,7 +97,7 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
     true_dist = onehot * confidence + (1.0 - onehot) * low
     nll = -(true_dist * logp).sum(dim=-1)
     mask = (targets != pad_id).to(nll.dtype)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    denom = torch.clamp(global_sum(mask.sum()), min=1.0)
     return (nll * mask).sum() / denom
 
 

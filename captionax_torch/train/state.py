@@ -39,6 +39,7 @@ import torch
 
 from captionax_torch.core.runtime import DeviceLike
 from captionax_torch.interop import to_device
+from captionax_torch.parallel.mesh import reduce_gradients
 
 B1, B2, EPS, EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
 MAX_CONSECUTIVE_ERRORS = 100
@@ -183,7 +184,11 @@ class TrainState(NamedTuple):
 
     def apply_gradients(self, grads, tx: Optimizer) -> "TrainState":
         """The state after one step.  With ``tx.donate`` this state's
-        parameters and moments, and ``grads``, are overwritten."""
+        parameters and moments, and ``grads``, are overwritten.  Inside a
+        data-parallel step the gradients are first summed over its ranks
+        (``parallel.mesh.reduce_gradients``), so the optimizer sees the
+        whole batch's."""
+        grads = reduce_gradients(grads)
         updates, new_opt = tx.update(grads, self.opt_state, self.params)
         ps, us = tree_leaves(self.params), tree_leaves(updates)
         out = ps if tx.donate else [torch.empty_like(p) for p in ps]

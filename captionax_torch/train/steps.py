@@ -23,6 +23,9 @@ the decoder's compute runs on bf16 copies (the casts are differentiable,
 so the gradients come back to the masters in f32).  ``fused_scan=True``
 runs the recurrence on K3 (``ops/train_kernel.py``) instead of the
 per-step loop; ``remat`` checkpoints the loop's steps.
+
+:func:`jit_data_parallel` wraps any of these steps into a data-parallel
+step over a mesh of ranks (:class:`DataParallelStep`).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from captionax_torch.models.classifiers import classifier_soft_apply_fn
 from captionax_torch.models.hypernet import hypernet_apply
 from captionax_torch.models.layers import embedding
 from captionax_torch.ops.train_kernel import fused_teacher_forced_hidden
+from captionax_torch.parallel.mesh import data_parallel, global_mean, reduce_metrics
 from captionax_torch.train.losses import (
     cross_entropy_loss,
     fused_ce_from_hidden,
@@ -135,6 +139,7 @@ def _train_step(loss_fn, tx):
         loss, grads = _value_and_grad(lambda p: loss_fn(p, batch), state.params)
         return state.apply_gradients(grads, tx), {"train_loss": loss}
 
+    train_step.loss_fn = loss_fn
     return train_step
 
 
@@ -315,7 +320,7 @@ class MixupStep(StyleLossStep):
     def aux_loss(self, params, batch, coeff, missing: int) -> torch.Tensor:
         pred = self.probe(params, batch, mixup_theta(params, self.style_ids, coeff, missing))
         coeff = _filled(coeff, pred.device)
-        return torch.mean((pred - mixup_style_target(coeff, missing)[None, :]) ** 2)
+        return global_mean((pred - mixup_style_target(coeff, missing)[None, :]) ** 2)
 
 
 class StyleAuxStep(StyleLossStep):
@@ -334,7 +339,7 @@ class StyleAuxStep(StyleLossStep):
             style = torch.as_tensor(batch["style_id"], device=pred.device)
             cls = torch.argmax(torch.stack([style == s for s in self.style_ids]).to(torch.int32))
         # pred[:, cls] without reading cls on the host (a wait for the card)
-        return -torch.mean(torch.log(pred.index_select(1, cls.reshape(-1)) + 1e-9))
+        return -global_mean(torch.log(pred.index_select(1, cls.reshape(-1)) + 1e-9))
 
 
 def make_hypernet_mixup_steps(tx, classifier_params, pad_id: int = 0, alpha: float = 0.3,
@@ -350,3 +355,41 @@ def make_hypernet_styleaux_steps(tx, classifier_params, pad_id: int = 0, alpha: 
     """Hypernet training with the style-identification loss; see
     :class:`StyleAuxStep`."""
     return StyleAuxStep(tx, classifier_params, pad_id, alpha, style_ids, embed_fn)
+
+
+# ------------------------------------------------------ data parallelism
+class DataParallelStep:
+    """A ``(state, batch) -> (state, metrics)`` step of this module run on
+    every rank of a mesh, each on its shard of the batch (captionax's
+    ``jit_data_parallel``; shard the batch with ``parallel.shard_batch`` or
+    ``BatchLoader(mesh=...)``).  Inside the step each loss divides by the
+    whole batch's count and the gradients are all-reduced as sums before
+    the optimizer (``parallel/mesh.py``), so the finite check and the clip
+    see the whole batch's gradient and decide alike on every rank: every
+    rank applies the same update and the replicas stay bit-equal.  The
+    metrics come back summed over the ranks: the whole batch's losses.
+
+    Draws (the mixup coefficient and the style it leaves out) are per step,
+    made from the step's count on the host: every rank draws the same.
+
+    A mesh of one process holds one rank (``n_data`` 1) or raises: training
+    over several devices runs one process per rank (``parallel.launch``)."""
+
+    def __init__(self, step_fn: Callable, mesh):
+        if mesh.group is None and mesh.n_data > 1:
+            raise ValueError("a data-parallel train step runs one process per rank: start "
+                             "the ranks with captionax_torch.parallel.launch")
+        self.step_fn, self.mesh = step_fn, mesh
+
+    def __call__(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        with data_parallel(self.mesh):
+            state, metrics = self.step_fn(state, batch)
+        return state, reduce_metrics(metrics, self.mesh.group)
+
+
+def jit_data_parallel(step_fn: Callable, mesh) -> DataParallelStep:
+    """``step_fn`` as a data-parallel step over ``mesh`` (params replicated,
+    the batch sharded over ``data``).  captionax's ``batch_shardings`` and
+    ``example_batch`` have no counterpart: ``shard_batch`` and
+    ``BatchLoader(mesh=...)`` place each rank's shard."""
+    return DataParallelStep(step_fn, mesh)

@@ -83,13 +83,28 @@ their validation and decodes (mask-predict, greedy), each CLI's first batch
 of features (K4) against ``CNNEncoder.plain``, each step by part, and the
 first train step of both models at hidden 64 on the card (f32) against the
 CPU (f64) on the CLIs' own first inputs, then both decodes card against
-CPU.  One line per phase gives the phase's seconds.
+CPU.  Phase 26 runs data parallelism on a mesh of 2 (two cards, else the
+one card twice): ``make_sharded_beam_decode`` at B=1024 over the S=3 bank
+(K1 on each shard, f32 and bf16) against the unsharded server,
+``CaptionService(mesh)`` at B=64 (K4 then K1 or K2 on each shard) over 192
+concurrent requests against the one-device service (a batch of 63
+raises), the data-parallel K3 step on two ranks (gloo where they share a
+card, NCCL where each has its own) with shards of ~4x different token
+counts (its first loss and all-reduced gradient against one process on
+the whole batch, the replicas bit-equal after every step, one step over a
+world-1 NCCL group), and ``train_hypernet --mesh-data 2`` against
+``--mesh-data 0`` (the train loss; the validation against one device's on
+the same parameters, and its distance from ``--mesh-data 0``'s within 10x
+a control's, one device with each batch's rows in another order; one
+writer).  One line per phase gives the phase's
+seconds.
 The line before the last is a JSON ``kernels`` record (K3's and K4's
 entries also carry their launches in phase 20's ``fit`` and, as
 ``launches_cc``, in phase 23's ``cc_train_hypernet`` ``fit``; K1's, K2's
 and K4's their launches on phase 21's paths, K4's on phase 22's and, as
 ``launches_cell_lstm``, on phase 24's runs and, as
-``launches_transformers``, on phase 25's); the last line is
+``launches_transformers``, on phase 25's; K1's, K2's, K3's and K4's, as
+``launches_data_parallel``, on phase 26's paths); the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or a
 failed build raises, and the script exits non-zero without that last line.
 """
@@ -113,6 +128,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from captionax_torch.cli import caption as cli_caption
@@ -132,7 +148,7 @@ from captionax_torch.cli import train_hypernet as cli_hypernet
 from captionax_torch.cli import train_init as cli_init
 from captionax_torch.cli import train_labert as cli_labert
 from captionax_torch.cli import train_lstm as cli_lstm
-from captionax_torch.core.config import DataConfig, ModelConfig
+from captionax_torch.core.config import DataConfig, ModelConfig, TrainConfig
 from captionax_torch.core.runtime import StepTimer
 from captionax_torch.core.vocab import Vocab, load_vocab_pickle
 from captionax_torch.data import native_image
@@ -152,6 +168,7 @@ from captionax_torch.decode.serving import (
     fetch,
     make_beam_server,
     make_greedy_server,
+    make_sharded_beam_decode,
     pack_beam_result,
     unpack_beam_result,
 )
@@ -183,6 +200,16 @@ from captionax_torch.ops import conv_kernel as ck
 from captionax_torch.ops import decode_kernel as dk
 from captionax_torch.ops import train_kernel as tk
 from captionax_torch.ops.probe import select_times as sel_probe
+from captionax_torch.parallel import make_mesh, replicate_params, shard_batch
+from captionax_torch.parallel import launch as dp_launch
+from captionax_torch.parallel.mesh import (
+    Mesh,
+    backend_for,
+    data_parallel,
+    reduce_gradients,
+    reduce_metrics,
+    shard_bounds,
+)
 from captionax_torch.train import checkpoint as tckpt
 from captionax_torch.train import harness
 from captionax_torch.train import steps as tsteps
@@ -4799,6 +4826,369 @@ def transformer_captioners() -> dict:
     return {"by_width": by_width}
 
 
+# ------------------------------------------------ phase 26: data parallelism
+DP_B = 1024               # (a) and (c): the batch, 512 a rank
+DP_STEPS = 3              # (c)
+DP_LOSS_RTOL = 1e-5       # (c): the first step's loss against one process on the whole batch
+DP_GRAD_SHARE = 1e-4      # (c): of each leaf's largest entry (share_of)
+DP_CLI_RTOL = 1e-4        # (d): the train loss against --mesh-data 0; the validation
+                          # against one device on the mesh run's parameters
+DP_CONTROL_TIMES = 10     # (d): the validation against --mesh-data 0, in the control's
+DP_CLI_IMAGES = 480
+
+
+def dp_devices() -> list:
+    """The phase's mesh of 2: two cards where there are two, else the one
+    card twice (a mesh's devices may repeat)."""
+    return ["cuda:0", "cuda:1"] if torch.cuda.device_count() >= 2 else ["cuda:0", "cuda:0"]
+
+
+def dp_model(dev):
+    """full_model's hypernet attention-GRU (the same draws) on ``dev``."""
+    g = gen(0)
+    decoder = attention_gru_init(g, NF, FO, E, H, V, device=dev)
+    return {"decoder": decoder,
+            "hn": hypernet_init(g, hyper_emb=E, input_dim=E + FO, hidden_dim=H, device=dev)}
+
+
+def dp_batch(dev) -> dict:
+    """A full-width train batch whose first half holds captions of 3-6 words
+    and whose second half 16-23: the two shards' token counts differ ~4x."""
+    feats = torch.randn((DP_B, R, NF), generator=torch.Generator(device=dev).manual_seed(21),
+                        device=dev)
+    rs = np.random.RandomState(22)
+    caps = np.zeros((DP_B, T_CAP), np.int64)
+    for r in range(DP_B):
+        n = rs.randint(3, 7) if r < DP_B // 2 else rs.randint(16, T_CAP - 1)
+        caps[r, 0], caps[r, 1:n + 1], caps[r, n + 1] = 1, rs.randint(4, V, n), 2
+    return {"features": feats, "captions": torch.from_numpy(caps).to(dev),
+            "style_id": torch.tensor(STYLE, device=dev)}
+
+
+def dp_train_rank(steps: int) -> dict:
+    """(c) on one rank of the phase's world: the first step's all-reduced
+    loss and gradient, then ``steps`` data-parallel K3 steps (timed, K3
+    counted, every rank's parameters hashed after each); rank 0 also takes
+    the whole batch in one process, and one step over a world-1 NCCL group.
+    -> rank 0's readings."""
+    import hashlib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(devices=dp_devices())
+    dev = mesh.local_device
+    batch = dp_batch(dev)
+    local = shard_batch(mesh, batch)
+    tx = make_optimizer(TRAIN_LR)
+    train, _ = make_hypernet_steps(tx, fused_scan=True)
+    state = create_train_state(replicate_params(mesh, dp_model(dev)), tx, device=dev)
+    with data_parallel(mesh):
+        loss, grads = tsteps._value_and_grad(lambda p: train.loss_fn(p, local), state.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads = reduce_gradients(grads)
+        torch.cuda.synchronize()
+        reduce_ms = (time.perf_counter() - t0) * 1e3
+    loss = float(reduce_metrics({"loss": loss}, mesh.group)["loss"])
+    tokens = [int((batch["captions"][a:b] != 0).sum()) for a, b in shard_bounds(DP_B, 2)]
+    pstep = tsteps.jit_data_parallel(train, mesh)
+    for op in tk.KERNELS:
+        op.launches = 0
+    times, digests = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = pstep(state, local)
+        float(m["train_loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+        h = hashlib.sha256()
+        for x in tree_leaves(state.params):
+            h.update(x.detach().cpu().numpy().tobytes())
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, h.hexdigest())
+        digests.append(every)
+    k3 = {op.name: op.launches for op in tk.KERNELS}
+    counts = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, k3)
+    nccl = dist.new_group([0], backend="nccl")
+    out = {"world": dist.get_world_size(), "backend": dist.get_backend(),
+           "devices": [str(d) for d in mesh.data_devices], "loss": loss, "tokens": tokens,
+           "ms": times, "digests": digests, "k3": counts, "reduce_ms": reduce_ms,
+           "entries": sum(x.numel() for x in tree_leaves(grads))}
+    if mesh.rank == 0:
+        params = replicate_params(Mesh([[dev]]), dp_model(dev))[0]
+        ref_loss, ref_grads = tsteps._value_and_grad(lambda p: train.loss_fn(p, batch), params)
+        out["ref_loss"] = float(ref_loss)
+        out["grad_share"] = {p: share_of(g, r) for p, g, r in zip(
+            leaf_paths(grads), tree_leaves(grads), tree_leaves(ref_grads))}
+        # one step over NCCL at world 1: the route starts and reduces on the card
+        one = Mesh([[dev]], group=nccl, rank=0)
+        state1 = create_train_state(params, tx, device=dev)
+        _, m1 = tsteps.jit_data_parallel(train, one)(state1, batch)
+        out["nccl"] = {"backend": dist.get_backend(nccl), "loss": float(m1["train_loss"])}
+    return out
+
+
+def dp_sharded_decode(model, feats) -> dict:
+    """(a) make_sharded_beam_decode at B=1024 over the S=3 bank, f32 and
+    bf16, against the unsharded server; -> K1's launches on the sharded
+    runs."""
+    bank, rows, _ = style_bank(model)
+    mesh = make_mesh(devices=dp_devices())
+    decoders = {name: (make_sharded_beam_decode(mesh, model["decoder"], bank,
+                                                max_steps=MAX_STEPS, f32=f32, packed=True),
+                       make_beam_server(model["decoder"], bank, max_steps=MAX_STEPS,
+                                        packed=True, f32=f32, device=DEVICE))
+                for name, f32 in (("f32", True), ("bf16", False))}
+    got, launches = count_launches(
+        lambda: {name: unpack_beam_result(fetch(d(feats, rows)))
+                 for name, (d, _) in decoders.items()}, "sharded beam decode")
+    for name, (sharded, single) in decoders.items():
+        ref = serve(single, [(feats, rows)])[0]
+        ok = ((got[name].tokens == ref.tokens).all(1) & (got[name].found == ref.found)
+              & (got[name].lengths == ref.lengths)
+              & (~ref.found | (np.abs(got[name].scores - ref.scores) <= FULL_SCORE_TOL)))
+        share = float(ok.mean())
+        ms = wall_ms(lambda: fetch(sharded(feats, rows)), 3)
+        ms1 = wall_ms(lambda: serve(single, [(feats, rows)]), 3)
+        say(f"  sharded beam decode {name}, B={DP_B} over {mesh.n_data} shards: {share:.4f} of "
+            f"rows equal the unsharded server's (scores within {FULL_SCORE_TOL}); "
+            f"{ms:.2f} ms a batch sharded, {ms1:.2f} ms unsharded [{CARD}]")
+        require(share >= FULL_AGREEMENT, f"sharded {name}: agreement {share}")
+    return launches
+
+
+def dp_service(model, enc, images, rows) -> tuple:
+    """(b) CaptionService(mesh) of 2 at B=64, beam and greedy, over 192
+    concurrent requests, against the one-device service; a batch of 63
+    raises.  -> (the kernels' launches, K4's by chain width)."""
+    vocab = synthetic_vocab()
+    params = {"decoder": mid_copy(model["decoder"]), "hn": model["hn"]}
+    mesh = make_mesh(devices=dp_devices())
+    launches, by_width = {}, {}
+    for decode in ("beam", "greedy"):
+        steps = MAX_STEPS if decode == "beam" else MAX_LEN
+        kernels = dk.BEAM_KERNELS if decode == "beam" else dk.GREEDY_KERNELS
+        kw = dict(batch_size=ENC_B, max_steps=steps, decode=decode)
+        with CaptionService(params, enc, vocab, STYLES, mesh=mesh, **kw) as svc, \
+                CaptionService(params, enc, vocab, STYLES, device=DEVICE, **kw) as one:
+            for s_ in (svc, one):  # a first burst each: cuDNN's plans, the allocator's blocks
+                serve_concurrently(s_, images, rows)
+            (answers, many, _, n_disp), n = count_launches(
+                lambda: serve_concurrently(svc, images, rows), f"sharded {decode} service",
+                tuple(kernels) + ck.KERNELS)
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+            for w, v in ck.LAUNCHES_BY_WIDTH.items():
+                by_width[w] = by_width.get(w, 0) + v
+            want, many1, _, _ = serve_concurrently(one, images, rows)
+            stats = svc.stats()
+            require(stats["errors"] == 0 and stats["served"] == 2 * (len(images) + 1),
+                    f"{stats}")
+            check_captions(answers, vocab, f"sharded {decode} service", decode == "beam")
+            same = float(np.mean([a["caption"] == b["caption"] for a, b in zip(answers, want)]))
+            say(f"  sharded {decode} service: {same:.4f} of {len(images)} captions equal the "
+                f"one-device service's; {len(images) / many:.1f} captions/s in {n_disp} "
+                f"dispatches, one device {len(images) / many1:.1f} captions/s [{CARD}]")
+            require(same >= FULL_AGREEMENT, f"sharded {decode} service: agreement {same}")
+    try:
+        CaptionService(params, enc, vocab, STYLES, mesh=mesh, batch_size=63)
+    except ValueError as e:
+        say(f"  batch_size 63 on a mesh of 2 raises ValueError: {e}")
+    else:
+        raise AssertionError("CaptionService(batch_size=63, mesh of 2) did not raise")
+    return launches, by_width
+
+
+def dp_train_step() -> dict:
+    """(c) the data-parallel K3 step on the phase's world; -> K3's launches
+    on its steps, summed over the ranks."""
+    out = dp_launch.launch(dp_train_rank, 2, (DP_STEPS,), devices=dp_devices())
+    say(f"  train world: {out['world']} ranks over {out['backend']} on {out['devices']}; "
+        f"non-pad tokens of the two shards {out['tokens']}")
+    require(out["tokens"][1] > 2 * out["tokens"][0], f"shard tokens {out['tokens']}")
+    rel = abs(out["loss"] - out["ref_loss"]) / abs(out["ref_loss"])
+    worst = max(out["grad_share"].items(), key=lambda kv: kv[1])
+    say(f"  first step: loss {out['loss']:.7f} against {out['ref_loss']:.7f} in one process on "
+        f"the whole batch (relative {rel:.2e}, bound {DP_LOSS_RTOL}); all-reduced gradient "
+        f"within {worst[1]:.2e} of each leaf's largest entry (worst {worst[0]}, bound "
+        f"{DP_GRAD_SHARE})")
+    require(rel <= DP_LOSS_RTOL, f"data-parallel loss: relative {rel}")
+    require(worst[1] <= DP_GRAD_SHARE, f"data-parallel gradient {worst}")
+    for i, every in enumerate(out["digests"]):
+        require(len(set(every)) == 1, f"step {i + 1}: the replicas differ")
+    say(f"  {DP_STEPS} steps, B={DP_B} ({DP_B // 2} a rank), T={T_CAP}, f32, K3: "
+        + ", ".join(f"{t:.2f}" for t in out["ms"]) + f" ms a step, of it the all-reduce of "
+        f"{out['entries']} f32 gradients over {out['backend']} {out['reduce_ms']:.2f} ms (rank "
+        f"0, the first step); parameters bit-equal across the ranks after every step [{CARD}]")
+    k3 = {name: sum(c[name] for c in out["k3"]) for name in out["k3"][0]}
+    say(f"  K3 launches on the data-parallel steps, both ranks: {k3}")
+    for name, n in k3.items():
+        require(n > 0, f"{name} was not launched on the data-parallel steps")
+    nccl = out["nccl"]
+    rel1 = abs(nccl["loss"] - out["ref_loss"]) / abs(out["ref_loss"])
+    say(f"  one step at world 1 over {nccl['backend']}: loss {nccl['loss']:.7f} (relative "
+        f"{rel1:.2e})")
+    require(nccl["backend"] == "nccl" and rel1 <= DP_LOSS_RTOL, f"NCCL step {nccl}")
+    return k3
+
+
+def dp_cli_rank(argv: list):
+    """(d)'s ``train_hypernet --mesh-data 2`` on one rank, the call
+    ``run_on_ranks`` makes in each rank; -> (rank 0's history, every rank's
+    kernel launches: K3's, K4's and K4's by chain width)."""
+    history = cli_hypernet.main(argv)
+    mine = {op.name: op.launches for op in tk.KERNELS + ck.KERNELS}
+    mine["k4_by_width"] = dict(ck.LAUNCHES_BY_WIDTH)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return history, every
+
+
+@contextlib.contextmanager
+def rows_in_another_order():
+    """(d)'s control: every training batch of ``CaptionTrainer.fit`` with its
+    second half of rows first.  The batch's mean loss and its gradient are
+    the same sums in another order, as the mesh's shards make them."""
+    real = harness.CaptionTrainer._loader
+
+    def rolled(batch):
+        rows = len(batch["captions"])
+        return {k: (np.concatenate([v[rows // 2:], v[:rows // 2]])
+                    if isinstance(v, np.ndarray) and v.ndim and len(v) == rows else v)
+                for k, v in batch.items()}
+
+    def loader(self, batches, even=True, **kw):
+        return real(self, (rolled(b) for b in batches) if even else batches, even=even, **kw)
+
+    harness.CaptionTrainer._loader = loader
+    try:
+        yield
+    finally:
+        harness.CaptionTrainer._loader = real
+
+
+def dp_cli() -> dict:
+    """(d) train_hypernet --mesh-data 2 (--fused-scan: K3; the encoder: K4)
+    against --mesh-data 0, B=64, one epoch on the seeded corpus: the
+    epoch's train loss; its validation losses against one device's
+    validation of the same parameters (the run's checkpoint, resumed at
+    learning rate 0: a step that moves nothing); and its distance from
+    --mesh-data 0 against a control's, one device with every training
+    batch's rows in another order (the same sums reordered, as the mesh
+    reorders them), which bounds it at DP_CONTROL_TIMES the control's.
+    -> the ranks' launches, summed."""
+    with tempfile.TemporaryDirectory(prefix="captionax-dp-") as tmp:
+        data = cli_corpus(tmp)
+        base = data + ["--synthetic-images", str(DP_CLI_IMAGES), "--max-epochs", "1",
+                       "--fused-scan", "--cache-features-device"]
+        one_dir, two_dir = os.path.join(tmp, "one"), os.path.join(tmp, "two")
+        t0 = time.perf_counter()
+        one = cli_hypernet.main(base + ["--checkpoint-dir", one_dir])
+        t1 = time.perf_counter()
+        two, ranks = dp_launch.launch(
+            dp_cli_rank, 2, (base + ["--checkpoint-dir", two_dir, "--mesh-data", "2"],),
+            devices=dp_devices())
+        t2 = time.perf_counter()
+        same = cli_hypernet.main(base + ["--checkpoint-dir", os.path.join(tmp, "same"),
+                                         "--resume", two_dir, "--lr", "0"])
+        with rows_in_another_order():
+            control = cli_hypernet.main(base + ["--checkpoint-dir", os.path.join(tmp, "ctl")])
+        keys = ("train_loss_epoch", "val_loss_tf", "val_loss")
+        rel = {k: abs(two[0][k] - one[0][k]) / abs(one[0][k]) for k in keys}
+        rel_ctl = {k: abs(control[0][k] - one[0][k]) / abs(one[0][k]) for k in keys}
+        rel_same = {k: abs(two[0][k] - same[0][k]) / abs(same[0][k])
+                    for k in ("val_loss_tf", "val_loss")}
+        for k in rel:
+            say(f"  train_hypernet {k}: --mesh-data 2 {two[0][k]:.7f}, --mesh-data 0 "
+                f"{one[0][k]:.7f} (relative {rel[k]:.2e}); the control, one device with "
+                f"the rows reordered, {control[0][k]:.7f} (relative {rel_ctl[k]:.2e})"
+                + (f"; one device on the mesh run's parameters {same[0][k]:.7f} (relative "
+                   f"{rel_same[k]:.2e})" if k in rel_same else ""))
+        p1, p2, pc = (tckpt.restore_checkpoint(d) for d in (one_dir, two_dir,
+                                                            os.path.join(tmp, "ctl")))
+        lr = float(TrainConfig().lr)
+        for what, p in (("--mesh-data 2", p2), ("the control", pc)):
+            diffs = torch.cat([(a - b).abs().flatten() for a, b in zip(tree_leaves(p1),
+                                                                       tree_leaves(p))])
+            say(f"  {what} against --mesh-data 0, the parameters after the epoch: max "
+                f"|difference| {diffs.max().item():.3e}; {int((diffs > lr / 10).sum())} of "
+                f"{diffs.numel()} entries differ by more than lr / 10 = {lr / 10:g}, "
+                f"{int((diffs > 0).sum())} at all")
+        require(rel["train_loss_epoch"] <= DP_CLI_RTOL,
+                f"--mesh-data 2 train loss: relative {rel['train_loss_epoch']}")
+        for k, r in rel_same.items():
+            require(r <= DP_CLI_RTOL, f"--mesh-data 2 {k} against one device: relative {r}")
+        bound = DP_CONTROL_TIMES * max(rel_ctl[k] for k in rel_same)
+        say(f"  --mesh-data 2's validation losses from --mesh-data 0's: at most "
+            f"{max(rel[k] for k in rel_same):.2e}, bound {bound:.2e} ({DP_CONTROL_TIMES} x the "
+            f"control's largest)")
+        for k in rel_same:
+            require(rel[k] <= bound, f"--mesh-data 2 {k} from --mesh-data 0: relative "
+                    f"{rel[k]}, over {DP_CONTROL_TIMES} x the control's")
+        steps = [d for d in os.listdir(two_dir) if d.isdigit()]
+        rows = [len(logged(os.path.join(d, "run.jsonl"))) for d in (two_dir, one_dir)]
+        say(f"  --mesh-data 2 wrote checkpoint directories {steps} and {rows[0]} log rows "
+            f"(--mesh-data 0: {rows[1]}); {t1 - t0:.2f} s for --mesh-data 0, {t2 - t1:.2f} s "
+            f"for --mesh-data 2 with its ranks' start [{CARD}]")
+        require(len(steps) == 1 and rows[0] == rows[1], "rank 0 alone must write")
+    out: dict = {"k4_by_width": {}}
+    for r in ranks:
+        for k, v in r.items():
+            if k == "k4_by_width":
+                for w, n in v.items():
+                    out["k4_by_width"][w] = out["k4_by_width"].get(w, 0) + n
+            else:
+                out[k] = out.get(k, 0) + v
+    say(f"  train_hypernet --mesh-data 2, launches on both ranks: "
+        + str({k: v for k, v in out.items() if k != "k4_by_width"}))
+    for op in tk.KERNELS + ck.KERNELS:
+        require(out.get(op.name, 0) > 0, f"{op.name} was not launched by --mesh-data 2")
+    return out
+
+
+def data_parallelism() -> dict:
+    """(26) Data parallelism on a mesh of 2 (two cards, or the one card
+    twice): (a) the sharded beam decode, (b) CaptionService(mesh), (c) the
+    data-parallel K3 train step, (d) train_hypernet --mesh-data 2.  -> the
+    kernels' launches on the phase's paths."""
+    devices = dp_devices()
+    say(f"  mesh: world 2, backend {backend_for(devices)}, {torch.cuda.device_count()} "
+        f"card(s), devices {devices}")
+    model = dp_model(DEVICE)
+    model["decoder"]["fc"]["b"][2] += EOS_BIAS
+    feats = torch.randn((DP_B, R, NF), generator=torch.Generator(device=DEVICE).manual_seed(1),
+                        device=DEVICE)
+    t = time.perf_counter()
+    k1 = dp_sharded_decode(model, feats)
+    say(f"  (a) {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    enc = k4_resnet()
+    images = random_images(N_MICRO * ENC_B, 17)
+    rows = np.random.RandomState(18).randint(0, len(STYLES), len(images)).astype(np.int32)
+    svc, svc_width = dp_service(model, enc, images, rows)
+    say(f"  (b) {time.perf_counter() - t:.2f} s")
+    del model, feats, enc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    k3 = dp_train_step()
+    say(f"  (c) {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    cli = dp_cli()
+    say(f"  (d) {time.perf_counter() - t:.2f} s")
+    counts = dict(svc)
+    for name, n in list(k1.items()) + list(k3.items()):
+        counts[name] = counts.get(name, 0) + n
+    for name in [op.name for op in tk.KERNELS + ck.KERNELS]:
+        counts[name] = counts.get(name, 0) + cli.get(name, 0)
+    by_width = dict(svc_width)
+    for w, n in cli["k4_by_width"].items():
+        by_width[w] = by_width.get(w, 0) + n
+    return {"counts": counts, "by_width": by_width}
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -4954,6 +5344,20 @@ def main() -> int:
         if k["source"] == K4_SOURCE:
             width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
             k["launches_transformers"] = trans["by_width"].get(width, 0)
+    del trans
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with Phase("26 data parallelism: the sharded beam decode (K1), CaptionService(mesh) (K4 + "
+               "K1, K2), the data-parallel K3 step, train_hypernet --mesh-data 2 (K3, K4)"):
+        dp = data_parallelism()
+    for k in kernels:
+        op = k["name"].split(" (")[0]
+        if k["source"] == K4_SOURCE:
+            width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
+            k["launches_data_parallel"] = dp["by_width"].get(width, 0)
+        elif op in dp["counts"]:
+            k["launches_data_parallel"] = dp["counts"][op]
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))

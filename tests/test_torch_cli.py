@@ -2,8 +2,9 @@
 fixture's sizes (E=H=F=16, ResNet-50, 12 synthetic images, --max-len 10,
 --beam-max-steps 8): ``train_gru`` then ``evaluate`` on its checkpoint,
 ``train_hypernet`` (plain, dedicated style tokens, bf16 on the K3 route,
-warm-started with ``--init-hn``), the options that are not ported yet (and
-the style losses without their classifier), and the default device.  Then the committed captionax checkpoint
+warm-started with ``--init-hn``), ``--mesh-data`` (two ranks, one slot,
+ignored by ``evaluate``), the style losses without their classifier, and
+the default device.  Then the committed captionax checkpoint
 ``tests/fixtures/gru_ckpt``, restored with captionax and carried into the
 port's checkpoint format: the port's ``beam_search`` and ``greedy`` on
 captionax's encoder features reproduce ``tests/fixtures/gru_goldens.json``'s
@@ -124,10 +125,10 @@ def test_train_hypernet_init_hn(tmp_path, monkeypatch):
 
 
 RAISES = {
-    "mesh_gru": (train_gru, ["--mesh-data", "2"], NotImplementedError, "Parallelism"),
-    "mesh_hypernet": (train_hypernet, ["--mesh-data", "2"], NotImplementedError,
-                      "Parallelism"),
-    "mesh_evaluate": (evaluate, ["--mesh-data", "2"], NotImplementedError, "Parallelism"),
+    # --mesh-data is ported: the mesh cases run (test_mesh_data_runs)
+    "mesh_gru": (train_gru, ["--mesh-data", "2"], None, None),
+    "mesh_hypernet": (train_hypernet, ["--mesh-data", "1"], None, None),
+    "mesh_evaluate": (evaluate, ["--mesh-data", "2"], None, None),
     # the style losses are ported: without their classifier they raise
     "mixup": (train_hypernet, ["--mixup"], SystemExit, "--style-classifier"),
     "style_aux": (train_hypernet, ["--style-aux"], SystemExit, "--style-classifier"),
@@ -138,9 +139,33 @@ RAISES = {
 
 @pytest.mark.parametrize("case", sorted(RAISES))
 def test_unported_options_raise(tmp_path, case):
+    """The options that raise; the ``mesh_*`` cases, which raised until data
+    parallelism was ported, now run: train_gru on two ranks and
+    train_hypernet on a one-slot mesh give the losses of the run without
+    a mesh, and evaluate ignores the flag and repeats its results, as
+    captionax's does."""
     cli, extra, exc, match = RAISES[case]
+    if exc is None:
+        mesh_data_runs(tmp_path, cli, extra)
+        return
     with pytest.raises(exc, match=match):
         cli.main(flags(str(tmp_path)) + CPU + extra)
+
+
+def mesh_data_runs(tmp_path, cli, extra):
+    one = str(tmp_path / "one")
+    kind = ["--kind", "gru", "--styles", "factual"]
+    if cli is evaluate:
+        train_gru.main(flags(one) + CPU + ["--max-epochs", "1"])
+        want = evaluate.main(flags(one) + CPU + kind)
+        assert evaluate.main(flags(one) + CPU + kind + extra) == want
+        return
+    want = cli.main(flags(one) + CPU + ["--max-epochs", "1"])
+    two = str(tmp_path / "two")
+    got = cli.main(flags(two) + CPU + ["--max-epochs", "1"] + extra)
+    for key in ("train_loss_epoch", "val_loss_tf", "val_loss"):
+        np.testing.assert_allclose(got[0][key], want[0][key], rtol=2e-5, err_msg=key)
+    assert tckpt.latest_step(two) == tckpt.latest_step(one)
 
 
 @pytest.mark.parametrize("cli", (train_gru, train_hypernet, evaluate))

@@ -254,6 +254,18 @@ def _entry_sine_position_2d():
     sine_position_2d(2, 2, 8)
 
 
+def _entry_make_mesh():
+    from captionax_torch.parallel import make_mesh
+
+    make_mesh(n_data=2)
+
+
+def _entry_launch():
+    from captionax_torch.parallel.launch import launch
+
+    launch(print, 2)
+
+
 ENTRY_POINTS = {name[7:]: fn for name, fn in globals().items() if name.startswith("_entry_")}
 
 

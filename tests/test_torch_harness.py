@@ -266,18 +266,35 @@ def test_fit_under_trace_writes_profile(vocabs, tmp_path):
 
 @pytest.mark.parametrize("what", ("mesh", "mixup", "style_aux"))
 def test_unported_options_raise(vocabs, tmp_path, what):
-    """mesh is not ported; mixup and style_aux are, and raise without the
-    classifier that scores them, as captionax's harness refuses them."""
+    """mixup and style_aux raise without the classifier that scores them, as
+    captionax's harness refuses them.  mesh is ported: a mesh of one slot
+    trains as no mesh does, bit for bit; a mesh of two slots in one process
+    raises (training over several devices runs one process per rank,
+    tests/test_torch_parallel_train.py)."""
     jv, tv = vocabs
+    kind = "gru" if what == "mesh" else "hypernet"
+    if what == "mesh":
+        from captionax_torch.parallel import make_mesh
+
+        hists = []
+        for mesh in (None, make_mesh(devices=["cpu"])):
+            cfg = tconfig.TrainConfig(max_epochs=1, batch_size=B,
+                                      checkpoint_dir=str(tmp_path / str(mesh is None)))
+            tt = tharness.CaptionTrainer(from_jax_params(jax_model(kind, len(jv)), device="cpu"),
+                                         kind, cfg, tv, mesh=mesh, device="cpu")
+            hists.append(tt.fit(lambda epoch: feature_batches(len(jv), style=False),
+                                lambda: feature_batches(len(jv), n_batches=1, style=False)))
+        for key in ("train_loss_epoch", "val_loss_tf", "val_loss"):
+            assert hists[0][0][key] == hists[1][0][key], key
+        with pytest.raises(ValueError, match="one process per rank"):
+            tharness.CaptionTrainer(from_jax_params(jax_model(kind, len(jv)), device="cpu"),
+                                    kind, cfg, tv, mesh=make_mesh(devices=["cpu", "cpu"]))
+        return
     cfg = tconfig.TrainConfig(checkpoint_dir=str(tmp_path),
                               mixup=what == "mixup", style_aux=what == "style_aux")
-    kind = "gru" if what == "mesh" else "hypernet"
-    exc, match = ((NotImplementedError, "Parallelism") if what == "mesh"
-                  else (ValueError, f"{what} needs style_classifier_params"))
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=f"{what} needs style_classifier_params"):
         tharness.CaptionTrainer(from_jax_params(jax_model(kind, len(jv)), device="cpu"),
-                                kind, cfg, tv, mesh=object() if what == "mesh" else None,
-                                device="cpu")
+                                kind, cfg, tv, device="cpu")
 
 
 def test_default_device_is_the_card(vocabs, tmp_path):

@@ -125,10 +125,25 @@ def test_int8_service_calibration(tmp_path):
     assert float(q.ravel() @ f32.ravel() / (np.linalg.norm(q) * np.linalg.norm(f32))) > 0.99
 
 
-def test_mesh_data_raises(tmp_path):
-    args = tserve.make_serve_parser().parse_args(_args(tmp_path, "--mesh-data", "2"))
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        tserve.build_service(args)
+def test_mesh_data_raises(tmp_path, monkeypatch):
+    """--mesh-data, which raised until data parallelism was ported, now
+    shards each dispatch over two CPU slots; its captions are the
+    one-device service's.  The mesh leaves the decode route to the device
+    (K1 / K2 on the card): only --no-fused asks for the plain decoders."""
+    img = np.random.RandomState(4).randint(0, 256, (224, 224, 3), dtype=np.uint8)
+    parse = tserve.make_serve_parser().parse_args
+    args = parse(_args(tmp_path, "--mesh-data", "2"))
+    with tserve.build_service(args) as two, tserve.build_service(parse(_args(tmp_path))) as one:
+        assert two.caption_array(img, "factual") == one.caption_array(img, "factual")
+
+    from captionax_torch.decode import service as tservice
+
+    asked = []
+    monkeypatch.setattr(tservice, "CaptionService",
+                        lambda *a, **kw: asked.append((kw["mesh"].n_data, kw["use_fused"])))
+    tserve.build_service(args)
+    tserve.build_service(parse(_args(tmp_path, "--mesh-data", "2", "--no-fused")))
+    assert asked == [(2, None), (2, False)]
 
 
 def test_rss_limit_needs_a_fixed_port(tmp_path):

@@ -17,7 +17,8 @@ The seams (as in ``test_torch_captioning_cli.py``):
 
 Under them: every logged train loss and LaBERT's validation losses within
 1e-5 relative, the final metrics within 1e-6.  ``--pipe 2``, ``--seq 2``
-and ``--mesh-data 2`` raise naming "Parallelism"; an epoch without a train
+raise naming "Parallelism" and ``--mesh-data 2`` is ignored, as in
+captionax; an epoch without a train
 batch raises in both packages (the epoch line prints the last loss)."""
 
 import jax
@@ -140,9 +141,23 @@ PARALLEL = [("labert", "--pipe"), ("labert", "--seq"), ("labert", "--mesh-data")
 
 @pytest.mark.parametrize("name,flag", PARALLEL)
 def test_parallel_flags_raise(tmp_path, name, flag):
+    """--pipe and --seq above 1 raise.  --mesh-data raised until data
+    parallelism was ported; now, as in captionax, these CLIs ignore it and
+    train on one device: the final state is bit-equal to a run without it."""
     _, tmod, _, sizes = PACKAGES[name]
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        tmod.main(flags(str(tmp_path)) + sizes + CPU + [flag, "2"])
+    if flag != "--mesh-data":
+        with pytest.raises(NotImplementedError, match="Parallelism"):
+            tmod.main(flags(str(tmp_path)) + sizes + CPU + [flag, "2"])
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmod, "build_encoder", lambda *a, **k: {})
+        mp.setattr(tmod, "make_encoder", lambda _p, regions=True, device=None: (
+            lambda images: torch.from_numpy(stub_regions(np.asarray(images.cpu())))))
+        base = sizes + CPU + ["--max-epochs", "1"]
+        want = tmod.main(flags(str(tmp_path / "one")) + base)
+        got = tmod.main(flags(str(tmp_path / "two")) + base + [flag, "2"])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got.params),
+                                                 tree_leaves(want.params)))
 
 
 @pytest.mark.parametrize("name", list(PACKAGES))
