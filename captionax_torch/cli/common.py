@@ -19,9 +19,11 @@ training CLI that reads it starts N ranks, one process each, through
 ``parallel.launch`` (:func:`ranks_to_start`, :func:`run_on_ranks`) and
 trains on the ranks' mesh (:func:`resolve_mesh`); ``serve`` shards each
 dispatch over N devices in one process.  The other CLIs accept the flag
-and run on one device, as captionax's do.  ``--pipe`` and ``--seq`` above
-1 raise: pipeline and sequence parallelism are the ``ROADMAP.md`` queue
-item "Parallelism" (6b).
+and run on one device, as captionax's do.  ``train_labert``'s ``--pipe``
+and ``--seq`` and ``train_catr``'s ``--pipe`` run the transformer stacks
+over a pipeline or sequence mesh of one process (``parallel/pipeline.py``,
+``parallel/sequence.py``), its N slots taken from ``default_devices(N,
+--device)``: a one-card machine repeats its card.
 """
 
 from __future__ import annotations
@@ -71,17 +73,6 @@ def make_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
-def check_parallel_flags(args) -> None:
-    """Raise for ``--pipe`` or ``--seq`` above 1 (the transformer CLIs'):
-    pipeline and sequence parallelism are not ported yet."""
-    for flag, what in (("pipe", "pipeline"), ("seq", "sequence")):
-        n = getattr(args, flag, 1)
-        if n > 1:
-            raise NotImplementedError(
-                f"--{flag} {n}: {what} parallelism is not ported yet "
-                "(the ROADMAP.md queue item \"Parallelism\", 6b)")
-
-
 def ranks_to_start(args) -> int:
     """N for ``--mesh-data N`` above 1 outside a process group (the ranks a
     training CLI must start), else 0."""
@@ -103,12 +94,15 @@ def run_on_ranks(main, argv, args):
 def resolve_mesh(args):
     """The data-parallel mesh ``--mesh-data`` asks for (None for 0): the
     ranks' mesh inside a process group, else a one-process mesh over N
-    slots of ``--device`` (a one-card machine repeats its card).  Raises for
-    ``--pipe`` / ``--seq`` above 1 (:func:`check_parallel_flags`)."""
-    check_parallel_flags(args)
+    slots of ``--device`` (a one-card machine repeats its card).  Raises
+    for ``--mesh-data`` with ``--pipe`` / ``--seq`` above 1: captionax runs
+    no data-parallel mesh beside a pipeline or a sequence split (its
+    ``train_labert`` and ``train_catr`` ignore ``--mesh-data``)."""
     n = getattr(args, "mesh_data", 0)
     if not n:
         return None
+    if getattr(args, "pipe", 1) > 1 or getattr(args, "seq", 1) > 1:
+        raise ValueError("--mesh-data does not combine with --pipe or --seq")
     from captionax_torch.parallel.mesh import default_devices, make_mesh
 
     # the slots run_on_ranks launched the ranks on

@@ -8,12 +8,16 @@ on the card unless ``--device cpu`` is given.
 
 captionax's choices kept: the FFN width is 2048 whatever ``--hidden``;
 the epoch line prints the last step's loss, which raises when an epoch
-had no train batch.  ``--pipe`` and ``--pipe-micro`` are read as captionax
-reads them; ``--pipe`` above 1 raises: pipeline parallelism is the
-``ROADMAP.md`` queue item "Parallelism" (6b).
+had no train batch.
 
-``--mesh-data`` is accepted and ignored: this CLI runs on one device,
-as captionax's does.
+``--pipe N`` runs both halves of the train step's transformer as N-stage
+pipelines (``parallel/pipeline.py``'s ``pipelined_catr_stacks``,
+``--pipe-micro`` microbatches, default 2N) over N slots of ``--device`` (a
+one-card machine repeats its card), the flags checked as captionax checks
+them; the greedy decode stays sequential.
+
+``--mesh-data`` is accepted and ignored: this CLI runs on one mesh of one
+process, as captionax's does.
 
     python -m captionax_torch.cli.train_catr --synthetic --max-epochs 2 \\
         --enc-layers 2 --dec-layers 2 --device cpu
@@ -25,7 +29,6 @@ import torch
 
 from captionax_torch.cli.common import (
     build_encoder,
-    check_parallel_flags,
     make_encoder,
     make_feature_fn,
     make_parser,
@@ -53,18 +56,41 @@ def build_catr_model(generator: torch.Generator, V: int, hidden: int, heads: int
                      enc_layers=enc_layers, dec_layers=dec_layers, device=device)
 
 
-def make_train_step(tx, num_heads: int):
+def make_train_step(tx, num_heads: int, stacks=(None, None)):
     """``train_step(state, feats, captions) -> (state, loss)``: captions[:, :-1]
-    predict captions[:, 1:]."""
+    predict captions[:, 1:]; ``stacks`` = (encoder_fn, decoder_fn) replace
+    the sequential stacks (``--pipe``)."""
+    encoder_fn, decoder_fn = stacks
+
     def train_step(state, feats, captions):
         def loss_fn(p):
-            logits = catr_forward(p, feats, captions[:, :-1], num_heads=num_heads)
+            logits = catr_forward(p, feats, captions[:, :-1], encoder_fn=encoder_fn,
+                                  decoder_fn=decoder_fn, num_heads=num_heads)
             return cross_entropy_loss(logits, captions[:, 1:])
 
         loss, grads = _value_and_grad(loss_fn, state.params)
         return state.apply_gradients(grads, tx), loss
 
     return train_step
+
+
+def pipelined_stacks(parser, args, batch_size: int):
+    """``--pipe``'s (encoder_fn, decoder_fn), (None, None) without it, after
+    captionax's checks of the flags."""
+    if args.pipe <= 1:
+        return None, None
+    from captionax_torch.parallel.mesh import default_devices
+    from captionax_torch.parallel.pipeline import pipeline_mesh, pipelined_catr_stacks
+
+    n_micro = args.pipe_micro or 2 * args.pipe
+    for name, n in (("--enc-layers", args.enc_layers), ("--dec-layers", args.dec_layers)):
+        if n % args.pipe:
+            parser.error(f"{name} {n} must divide by --pipe {args.pipe}")
+    if batch_size % n_micro:
+        parser.error(f"--batch-size {batch_size} must divide by --pipe-micro {n_micro}")
+    return pipelined_catr_stacks(
+        pipeline_mesh(n_pipe=args.pipe, devices=default_devices(args.pipe, args.device)),
+        n_micro=n_micro, num_heads=args.heads)
 
 
 def main(argv=None):
@@ -75,14 +101,15 @@ def main(argv=None):
     parser.add_argument("--dec-layers", type=int, default=6)
     parser.add_argument("--encoder-weights", type=str, default="")
     parser.add_argument("--pipe", type=int, default=1,
-                        help="pipeline-parallel stages for both transformer halves; not "
-                             "ported yet, above 1 raises")
+                        help="pipeline-parallel stages for both transformer halves (train "
+                             "step only; enc/dec layer counts divisible by it)")
     parser.add_argument("--pipe-micro", type=int, default=0,
-                        help="microbatches per step with --pipe")
+                        help="microbatches per step (default 2*pipe; batch size must "
+                             "divide by it)")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    check_parallel_flags(args)
     device = resolve_device(args.device)
+    stacks = pipelined_stacks(parser, args, train_cfg.batch_size)
 
     vocab = resolve_vocab(data_cfg)
     data = resolve_flickr_data(data_cfg, vocab, train_cfg.max_len)
@@ -98,7 +125,7 @@ def main(argv=None):
     state = create_train_state(params, tx, device=device)
     del params
     logger = MetricLogger(train_cfg.checkpoint_dir, args.run_name)
-    train_step = make_train_step(tx, args.heads)
+    train_step = make_train_step(tx, args.heads, stacks)
 
     train_idx, val_idx, _ = data.splits(seed=train_cfg.seed)
     step = 0

@@ -10,13 +10,21 @@ The frozen ResNet's bottleneck chains run on K4.  Runs on the card unless
 Randomness.  Step ``s`` masks with the draws of :func:`step_mask_draws`
 from a generator on the run's device seeded with ``s``, and every
 validation batch with the draws of seed 0 (captionax draws them from
-``PRNGKey(s)`` and ``PRNGKey(0)``).  ``--pipe``, ``--pipe-micro``,
-``--seq`` and ``--seq-ring`` are read as captionax reads them; ``--pipe``
-or ``--seq`` above 1 raises: pipeline and sequence parallelism are the ``ROADMAP.md`` queue
-item "Parallelism" (6b).
+``PRNGKey(s)`` and ``PRNGKey(0)``).
 
-``--mesh-data`` is accepted and ignored: this CLI runs on one device,
-as captionax's does.
+``--pipe N`` runs the train step's BERT stack as an N-stage pipeline
+(``parallel/pipeline.py``, ``--pipe-micro`` microbatches, default 2N),
+``--seq N`` with its token axis split over N slots (``parallel/sequence.py``,
+``--seq-ring``: the ring schedule), each over N slots of ``--device`` (a
+one-card machine repeats its card).  The flags are checked as captionax
+checks them.  With ``--seq`` the text columns are padded with pad ids
+until 49 + T divides by N (:func:`pad_for_seq`), which leaves the loss
+unchanged; the step's mask draws are made at the unpadded shape and
+padded, so that ``--seq`` trains as the sequential stack does (captionax
+draws at the padded shape).  Validation and the decode stay sequential.
+
+``--mesh-data`` is accepted and ignored: this CLI runs on one mesh of one
+process, as captionax's does.
 
     python -m captionax_torch.cli.train_labert --synthetic --max-epochs 2 \\
         --hidden 128 --bert-layers 2 --device cpu
@@ -29,7 +37,6 @@ import torch
 
 from captionax_torch.cli.common import (
     build_encoder,
-    check_parallel_flags,
     make_encoder,
     make_feature_fn,
     make_parser,
@@ -88,15 +95,60 @@ def step_mask_draws(key: int, B: int, T: int, device: DeviceLike = None):
     return mask_draws(torch.Generator(device=dev).manual_seed(key), B, T, device=dev)
 
 
-def make_train_step(tx, mask_id: int, num_heads: int):
-    """``train_step(state, feats, captions, types, draws) -> (state, loss)``."""
+def make_train_step(tx, mask_id: int, num_heads: int, encoder_fn=None):
+    """``train_step(state, feats, captions, types, draws) -> (state, loss)``;
+    ``encoder_fn`` replaces the sequential BERT stack (``--pipe``, ``--seq``)."""
     def train_step(state, feats, captions, types, draws):
         loss, grads = _value_and_grad(
             lambda p: labert_loss(p, feats, captions, types, draws, mask_id,
-                                  num_heads=num_heads), state.params)
+                                  num_heads=num_heads, encoder_fn=encoder_fn), state.params)
         return state.apply_gradients(grads, tx), loss
 
     return train_step
+
+
+def pad_for_seq(caps: torch.Tensor, types: torch.Tensor, draws, n_regions: int, n_seq: int):
+    """The text columns padded with pad ids (0) until ``n_regions`` + T
+    divides by ``n_seq``, and the draws' scores with ones (a pad column is
+    never masked); -> (caps, types, draws)."""
+    short = (-(n_regions + caps.shape[1])) % n_seq
+    if not short:
+        return caps, types, draws
+    pad = caps.new_zeros((caps.shape[0], short))
+    ratio, scores = draws
+    return (torch.cat([caps, pad], 1), torch.cat([types, pad.to(types.dtype)], 1),
+            (ratio, torch.cat([scores, scores.new_ones((scores.shape[0], short))], 1)))
+
+
+def parallel_encoder(parser, args, batch_size: int):
+    """The ``encoder_fn`` of ``--pipe`` / ``--seq`` (None for neither),
+    after captionax's checks of the flags."""
+    from captionax_torch.parallel.mesh import default_devices
+
+    enc = None
+    if args.pipe > 1:
+        from captionax_torch.parallel.pipeline import pipeline_mesh, pipelined_bert_encoder
+
+        n_micro = args.pipe_micro or 2 * args.pipe
+        if args.bert_layers % args.pipe:
+            parser.error(f"--bert-layers {args.bert_layers} must divide by --pipe {args.pipe}")
+        if batch_size % n_micro:
+            parser.error(f"--batch-size {batch_size} must divide by --pipe-micro {n_micro}")
+        enc = pipelined_bert_encoder(
+            pipeline_mesh(n_pipe=args.pipe, devices=default_devices(args.pipe, args.device)),
+            n_micro=n_micro, num_heads=args.bert_heads)
+    if args.seq > 1:
+        from captionax_torch.parallel.sequence import (
+            sequence_mesh,
+            sequence_parallel_bert_encoder,
+        )
+
+        if args.pipe > 1:
+            parser.error("--seq and --pipe are mutually exclusive")
+        enc = sequence_parallel_bert_encoder(
+            sequence_mesh(n_seq=args.seq, devices=default_devices(args.seq, args.device)),
+            num_heads=args.bert_heads, ring=args.seq_ring)
+    return enc
 
 
 def main(argv=None):
@@ -106,19 +158,23 @@ def main(argv=None):
     parser.add_argument("--bert-heads", type=int, default=12)
     parser.add_argument("--encoder-weights", type=str, default="")
     parser.add_argument("--pipe", type=int, default=1,
-                        help="pipeline-parallel stages for the BERT stack; not ported "
-                             "yet, above 1 raises")
+                        help="pipeline-parallel stages for the BERT stack (train step only; "
+                             "--bert-layers %% pipe == 0)")
     parser.add_argument("--pipe-micro", type=int, default=0,
-                        help="microbatches per step with --pipe")
+                        help="microbatches per step (default 2*pipe; batch size must "
+                             "divide by it)")
     parser.add_argument("--seq", type=int, default=1,
-                        help="sequence-parallel shards for the BERT token axis; not "
-                             "ported yet, above 1 raises")
+                        help="sequence-parallel shards of the BERT token axis (train step "
+                             "only; text columns pad-extended so regions+T divide by it). "
+                             "Mutually exclusive with --pipe")
     parser.add_argument("--seq-ring", action="store_true",
-                        help="with --seq: the ring-attention schedule")
+                        help="with --seq: the ring-attention schedule instead of "
+                             "all-gathered K/V")
     args = parser.parse_args(argv)
     model_cfg, train_cfg, data_cfg = parse_configs(args)
-    check_parallel_flags(args)
     device = resolve_device(args.device)
+    encoder_fn = parallel_encoder(parser, args, train_cfg.batch_size)
+    n_seq = max(1, args.seq)
 
     vocab = resolve_vocab(data_cfg)
     mask_id = len(vocab)  # appended [MASK]
@@ -137,7 +193,7 @@ def main(argv=None):
     logger = MetricLogger(train_cfg.checkpoint_dir, args.run_name)
     sched = PlateauScheduler(cooldown=train_cfg.plateau_cooldown,
                              factor=train_cfg.plateau_factor)
-    train_step = make_train_step(tx, mask_id, args.bert_heads)
+    train_step = make_train_step(tx, mask_id, args.bert_heads, encoder_fn)
 
     def loader(indices, batch_size, **kw):
         return BatchLoader(add_type_ids(data.batches(indices, batch_size, style="factual", **kw)),
@@ -150,6 +206,8 @@ def main(argv=None):
             feats = featurize(batch)
             caps, types = batch["captions"].long(), batch["token_type_ids"].long()
             draws = step_mask_draws(step, *caps.shape, device)
+            if n_seq > 1:
+                caps, types, draws = pad_for_seq(caps, types, draws, feats.shape[1], n_seq)
             state, loss = train_step(state, feats, caps, types, draws)
             step += 1
             if step % train_cfg.log_every == 0:

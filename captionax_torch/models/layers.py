@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from captionax_torch.core.runtime import DeviceLike, resolve_device
+from captionax_torch.parallel.mesh import ColumnShards, RowShards, column_linear, row_lookup
 
 Params = Dict[str, object]
 
@@ -42,6 +43,10 @@ def linear_init(generator: torch.Generator, in_dim: int, out_dim: int,
 
 
 def linear(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w + b``; a ``w`` split over a mesh's ``model`` axis
+    (``ColumnShards``) computes each part's columns on its slot."""
+    if isinstance(params["w"], ColumnShards):
+        return column_linear(x, params["w"], params["b"])
     return torch.matmul(x, params["w"]) + params["b"]
 
 
@@ -54,6 +59,10 @@ def embedding_init(generator: torch.Generator, vocab_size: int, dim: int,
 
 
 def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; a table split by rows over a mesh's ``model`` axis
+    (``RowShards``) looks each id up in the part that holds it."""
+    if isinstance(table, RowShards):
+        return row_lookup(table, ids)
     return table[ids]
 
 

@@ -1,14 +1,22 @@
 """Device mesh, placement rules and the data-parallel step's reductions.
 
-Port of ``captionax/parallel/mesh.py``.  A :class:`Mesh` holds devices
-``[n_data, n_model]`` under the axis names ``("data", "model")``.  The
-``model`` axis stays size 1 (replication), as captionax uses it outside its
-dry run.  captionax drives every device of its mesh from one process; the
-port runs a mesh in one of two ways:
+Port of ``captionax/parallel/mesh.py``.  A :class:`Mesh` holds a 2-D grid
+of devices under two axis names: ``("data", "model")`` from
+:func:`make_mesh`, ``("data", "pipe")``, ``("data", "seq")`` or
+``("data", "expert")`` from ``parallel/pipeline.py`` and
+``parallel/sequence.py``.  The ``model`` axis is tensor parallelism:
+:func:`vocab_tp_sharding` and :class:`Sharding` split a tensor over it
+(:class:`ColumnShards`, :class:`RowShards`), and ``models/layers.py``'s
+``linear`` and ``embedding`` and the fused CE compute each part on its own
+slot (``scale_check``'s placements).  captionax drives every device of its
+mesh from one process; the port runs a mesh in one of two ways:
 
-- **one process over the mesh's devices** (``group`` is None): serving.
-  Decoding has no communication between devices, so each shard of a batch
-  runs on its device and its own stream.  :func:`shard_batch` gives one
+- **one process over the mesh's devices** (``group`` is None): serving,
+  the pipeline and sequence schedules, the expert bank and the tensor
+  split.  Each shard of a batch runs on its device and its own stream, and
+  a tensor moves between slots with ``.to(device)``, which autograd
+  differentiates: a leaf copied to other slots gets their gradients summed
+  into it, as captionax's ``psum`` over ``data`` does.  :func:`shard_batch` gives one
   slice per device and :func:`replicate_params` a copy per device (they
   take the place of captionax's ``batch_sharding`` and ``replicated``
   under ``device_put``).
@@ -33,7 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,9 +53,10 @@ _ACTIVE = contextvars.ContextVar("captionax_torch_data_parallel", default=None)
 
 
 class Mesh:
-    """Devices ``[n_data, n_model]`` with the axis names ``("data", "model")``;
-    ``group`` is the ``torch.distributed`` group when the mesh spans
-    processes (then ``rank`` is this process's data index), else None."""
+    """A 2-D grid of devices with two axis names (``("data", "model")`` by
+    default); ``group`` is the ``torch.distributed`` group when the mesh
+    spans processes (then ``rank`` is this process's data index), else
+    None."""
 
     def __init__(self, devices, axis_names: Tuple[str, str] = AXES, group=None,
                  rank: int = 0):
@@ -66,11 +75,20 @@ class Mesh:
 
     @property
     def n_data(self) -> int:
-        return self.devices.shape[0]
+        return self.shape.get("data", self.devices.shape[0])
+
+    def axis_slots(self, axis: str, at: int = 0) -> List[torch.device]:
+        """The devices along ``axis``, the other axis at index ``at``."""
+        if self.axis_names.index(axis) == 0:
+            return list(self.devices[:, at])
+        return list(self.devices[at, :])
 
     @property
     def data_devices(self) -> List[torch.device]:
-        """The device of each data shard, in shard order."""
+        """The device of each data shard, in shard order (each data row's
+        first slot)."""
+        if "data" in self.axis_names:
+            return self.axis_slots("data")
         return list(self.devices[:, 0])
 
     @property
@@ -206,6 +224,121 @@ def replicate_params(mesh: Mesh, params):
         if d not in copies:
             copies[d] = to_device(params, d)
     return [copies[d] for d in mesh.data_devices]
+
+
+# --------------------------------------------- the tensor-parallel split
+class ColumnShards(list):
+    """A tensor split along its last axis over the ``model`` axis (captionax's
+    ``P(None, "model")``, or ``P("model")`` for a vector): part k on model
+    slot k.  ``linear`` computes each part's columns on its slot and joins
+    them on the input's device.  A list, so that the tree functions see
+    the parts as leaves."""
+
+    dim = -1
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size(tuple(self[0].shape[:-1]) + (sum(p.shape[-1] for p in self),))
+
+
+class RowShards(list):
+    """A tensor split along its first axis over the ``model`` axis
+    (``P("model", None)``): part k on model slot k.  ``embedding`` looks each
+    id up in the part that holds its row and sums the parts' results (the
+    others give zeros) on the ids' device."""
+
+    dim = 0
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((sum(p.shape[0] for p in self),) + tuple(self[0].shape[1:]))
+
+
+SHARDS = (ColumnShards, RowShards)
+
+
+class Sharding(NamedTuple):
+    """Where a tensor lies on a one-process mesh: split along ``dim`` over
+    ``mesh``'s ``model`` axis (0: rows, -1: columns), or whole on the first
+    slot (``dim`` None).  captionax's ``NamedSharding`` under ``device_put``."""
+
+    mesh: Mesh
+    dim: Optional[int] = None
+
+    def place(self, x: torch.Tensor, row: int = 0):
+        """``x`` on data row ``row``'s slots: the parts of its split, or the
+        whole tensor on the row's first slot."""
+        slots = self.mesh.axis_slots("model", row)
+        if self.dim is None or len(slots) == 1:
+            return x.to(slots[0])
+        dim = self.dim % x.ndim
+        if x.shape[dim] % len(slots):
+            raise ValueError(f"axis {dim} of {tuple(x.shape)} does not divide by the mesh's "
+                             f"model axis ({len(slots)})")
+        kind = RowShards if dim == 0 and x.ndim > 1 else ColumnShards
+        if dim != (0 if kind is RowShards else x.ndim - 1):
+            raise ValueError(f"a split along axis {dim} of a {x.ndim}-D tensor is neither "
+                             "its rows nor its columns")
+        return kind(p.to(d).contiguous() for p, d in zip(x.chunk(len(slots), dim), slots))
+
+
+def vocab_tp_sharding(mesh: Mesh) -> Sharding:
+    """The column split of the fc vocab projection [H, V]: V over ``model``."""
+    return Sharding(mesh, -1)
+
+
+def spec_of(leaf) -> str:
+    """captionax's ``PartitionSpec`` of a leaf placed by :class:`Sharding`."""
+    if isinstance(leaf, ColumnShards):
+        return ("PartitionSpec('model',)" if len(leaf.shape) == 1
+                else f"PartitionSpec({', '.join(['None'] * (len(leaf.shape) - 1))}, 'model')")
+    if isinstance(leaf, RowShards):
+        return f"PartitionSpec('model', {', '.join(['None'] * (len(leaf.shape) - 1))})"
+    return "PartitionSpec()"
+
+
+def column_linear(x: torch.Tensor, w: ColumnShards, b, cast=None) -> torch.Tensor:
+    """``x @ w + b`` with ``w``'s (and ``b``'s) parts on their slots: each
+    part's columns computed on its slot (``cast`` applied there to the
+    operands), joined on ``x``'s device."""
+    cast = cast or (lambda t: t)
+    outs = [(torch.matmul(cast(x.to(wk.device)), cast(wk)) + cast(bk)).to(x.device)
+            for wk, bk in zip(w, b)]
+    return torch.cat(outs, dim=-1)
+
+
+def row_lookup(table: RowShards, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` with the table's rows split over slots: each part
+    gives the rows it holds and zeros elsewhere, and the parts' results are
+    summed on ``ids``'s device (each entry is one part's value plus zeros,
+    so the sum is exact)."""
+    out, start = None, 0
+    for part in table:
+        n = part.shape[0]
+        local = ids.to(part.device) - start
+        inside = (local >= 0) & (local < n)
+        rows = torch.where(inside[..., None], part[local.clamp(0, n - 1)],
+                           torch.zeros((), dtype=part.dtype, device=part.device)).to(ids.device)
+        out = rows if out is None else out + rows
+        start += n
+    return out
+
+
+def place_on_row(tree, mesh: Mesh, row: int):
+    """``tree`` (a tree placed on data row 0) with every tensor on data row
+    ``row``'s slots: a split tensor's part k on slot (row, k), a whole one on
+    the row's first slot.  Where a slot's device is the leaf's, the leaf
+    itself; autograd carries each copy's gradient back to its leaf."""
+    if isinstance(tree, SHARDS):
+        slots = mesh.axis_slots("model", row)
+        return type(tree)(p.to(d) for p, d in zip(tree, slots))
+    if isinstance(tree, dict):
+        return {k: place_on_row(v, mesh, row) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_on_row(v, mesh, row) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(mesh.axis_slots("model", row)[0])
+    return tree
 
 
 # ------------------------------------------- the data-parallel reductions

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from captionax_torch.parallel.mesh import global_mean, global_sum
+from captionax_torch.parallel.mesh import ColumnShards, column_linear, global_mean, global_sum
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
@@ -47,8 +47,13 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def _chunk_ce(hc, tc, w, b, pad_id):
-    """(sum of nll over non-pad rows, count of non-pad rows) of one chunk."""
-    logits = torch.matmul(hc.float(), w.float()) + b.float()
+    """(sum of nll over non-pad rows, count of non-pad rows) of one chunk;
+    a ``w`` split over a mesh's ``model`` axis gives each part's logits on
+    its slot."""
+    if isinstance(w, ColumnShards):
+        logits = column_linear(hc, w, b, cast=lambda t: t.float())
+    else:
+        logits = torch.matmul(hc.float(), w.float()) + b.float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, tc[:, None])[:, 0]
     mask = (tc != pad_id).float()

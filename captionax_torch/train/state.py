@@ -130,7 +130,7 @@ class Optimizer:
         g = tree_leaves(grads)
         dev = g[0].device
         if self.skip_nonfinite:
-            finite = torch.stack([torch.isfinite(c).all() for x in g
+            finite = torch.stack([torch.isfinite(c).all().to(dev) for x in g
                                   for (c,) in _chunked(x)]).all()
             notfinite = torch.where(finite, torch.zeros_like(state.notfinite_count),
                                     state.notfinite_count + 1)
@@ -140,7 +140,7 @@ class Optimizer:
             ok = torch.ones((), dtype=torch.bool, device=dev)
             notfinite, total = state.notfinite_count, state.total_notfinite
         # clip_by_global_norm: the norm from whole-leaf sums, one leaf at a time
-        norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+        norm = torch.sqrt(sum(torch.sum(x * x).to(dev) for x in g))
         below = norm < self.clip_norm
         # scale_by_adam's bias corrections
         adam = state.adam
@@ -160,17 +160,21 @@ class Optimizer:
             upd = [torch.empty_like(x, dtype=torch.promote_types(x.dtype, m.dtype))
                    for x, m in zip(g, mu)]
         for leaf in zip(g, mu, nu, new_mu, new_nu, upd):
+            # the step's scalars on the leaf's device (a leaf of a mesh's other slot)
+            at = leaf[0].device
+            below_, ok_, norm_, bc1_, bc2_, lr_ = (t.to(at) for t in (below, ok, norm, bc1,
+                                                                      bc2, lr))
             for x, m, v, m_out, v_out, u_out in _chunked(*leaf):
-                x = torch.where(below, x, (x / norm.to(x.dtype)) * self.clip_norm)
+                x = torch.where(below_, x, (x / norm_.to(x.dtype)) * self.clip_norm)
                 m_new = (1 - B1) * x + B1 * m
                 v_new = (1 - B2) * (x * x) + B2 * v
-                u = (m_new / bc1.to(m_new.dtype)) / (
-                    torch.sqrt(v_new / bc2.to(v_new.dtype) + EPS_ROOT) + EPS)
-                u = -lr * u
+                u = (m_new / bc1_.to(m_new.dtype)) / (
+                    torch.sqrt(v_new / bc2_.to(v_new.dtype) + EPS_ROOT) + EPS)
+                u = -lr_ * u
                 # apply_if_finite: a dropped step moves nothing and keeps the state
-                m_out.copy_(torch.where(ok, m_new, m))
-                v_out.copy_(torch.where(ok, v_new, v))
-                u_out.copy_(torch.where(ok, u, torch.zeros_like(u)))
+                m_out.copy_(torch.where(ok_, m_new, m))
+                v_out.copy_(torch.where(ok_, v_new, v))
+                u_out.copy_(torch.where(ok_, u, torch.zeros_like(u)))
         new_adam = AdamState(torch.where(ok, count, adam.count),
                              tree_unflatten(adam.mu, new_mu), tree_unflatten(adam.nu, new_nu))
         return (tree_unflatten(grads, upd),

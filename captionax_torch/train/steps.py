@@ -393,3 +393,32 @@ def jit_data_parallel(step_fn: Callable, mesh) -> DataParallelStep:
     ``example_batch`` have no counterpart: ``shard_batch`` and
     ``BatchLoader(mesh=...)`` place each rank's shard."""
     return DataParallelStep(step_fn, mesh)
+
+
+# ------------------------------------- a data x model mesh in one process
+def mesh_train_step(loss_fn: Callable, tx, mesh, pad_id: int = 0):
+    """A train step over a one-process mesh ``[n_data, n_model]`` (the
+    tensor-parallel step of ``scale_check``): ``loss_fn(params, batch)`` is
+    a step's loss (``make_gru_steps(tx)[0].loss_fn``, a teacher-forced CE
+    mean over the non-pad ``captions``), the parameters lie on data row 0
+    with the ``model`` axis's splits (``parallel.mesh.Sharding``).  Data
+    shard r of the batch runs on row r with the parameters copied onto its
+    slots (``place_on_row``), and the shards' means are weighted by their
+    share of the batch's non-pad targets: the sum is the whole batch's mean,
+    and autograd sums every row's gradient into its leaf (captionax's psum
+    over ``data``).  -> ``train_step(state, batch) -> (state, metrics)``."""
+    from captionax_torch.parallel.mesh import place_on_row, shard_rows
+
+    def loss(params, batch):
+        count = (batch["captions"] != pad_id).sum()
+        total = None
+        for r in range(mesh.n_data):
+            dev = mesh.data_devices[r]
+            shard = to_device(shard_rows(batch, mesh, r), dev)
+            share = (shard["captions"] != pad_id).sum() / count.to(dev)
+            part = (loss_fn(place_on_row(params, mesh, r), shard) * share).to(
+                mesh.data_devices[0])
+            total = part if total is None else total + part
+        return total
+
+    return _train_step(loss, tx)

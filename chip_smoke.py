@@ -96,15 +96,29 @@ world-1 NCCL group), and ``train_hypernet --mesh-data 2`` against
 ``--mesh-data 0`` (the train loss; the validation against one device's on
 the same parameters, and its distance from ``--mesh-data 0``'s within 10x
 a control's, one device with each batch's rows in another order; one
-writer).  One line per phase gives the phase's
-seconds.
+writer).  Phase 27 runs pipeline, sequence, expert and tensor parallelism
+in one process over the card's slots (a card repeats in every slot), and
+the checkpoint bridge: (a) LaBERT at ``train_labert``'s defaults over pipe
+4 with 8 microbatches and (b) over seq 4, all-gather and ring, each loss
+and its gradients against the sequential stack; (c) ``train_labert --pipe
+4``, ``--seq 4 --seq-ring`` and ``train_catr --pipe 2`` against ``--pipe
+1`` (every step's loss; the first step's gradients in f32, and in f64 on
+the same weights and inputs); (d) ``expert_theta_bank`` over 4 slots at
+full width against ``synthesize_theta_batched``, then K1 at B=1024 on each
+bank; (e) ``scale_check --kind hypernet --mesh-data 2 --mesh-model 2`` and
+``--kind labert --pipe 4``; (f) ``export_checkpoint`` of a full-width
+``train_hypernet`` checkpoint and its ResNet-152, ``import_checkpoint`` of
+the ``.ckpt`` (bit for bit), then ``caption`` (beam over three styles,
+greedy; K4 then K1 / K2) from both checkpoints, every row equal.  One line
+per phase gives the phase's seconds.
 The line before the last is a JSON ``kernels`` record (K3's and K4's
 entries also carry their launches in phase 20's ``fit`` and, as
 ``launches_cc``, in phase 23's ``cc_train_hypernet`` ``fit``; K1's, K2's
 and K4's their launches on phase 21's paths, K4's on phase 22's and, as
 ``launches_cell_lstm``, on phase 24's runs and, as
 ``launches_transformers``, on phase 25's; K1's, K2's, K3's and K4's, as
-``launches_data_parallel``, on phase 26's paths); the last line is
+``launches_data_parallel``, on phase 26's paths and, as
+``launches_parallel``, on phase 27's); the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or a
 failed build raises, and the script exits non-zero without that last line.
 """
@@ -138,6 +152,9 @@ from captionax_torch.cli import train_captioning as cli_captioning
 from captionax_torch.cli import train_catr as cli_catr
 from captionax_torch.cli import train_classifier as cli_classifier
 from captionax_torch.cli import evaluate as cli_evaluate
+from captionax_torch.cli import export_checkpoint as cli_export
+from captionax_torch.cli import import_checkpoint as cli_import
+from captionax_torch.cli import scale_check as cli_scale_check
 from captionax_torch.cli import serve as cli_serve
 from captionax_torch.cli import test_all as cli_test_all
 from captionax_torch.cli import test_zero_shot as cli_zero_shot
@@ -193,7 +210,8 @@ from captionax_torch.models.encoder import (
 from captionax_torch.models.catr import catr_forward, catr_greedy
 from captionax_torch.models.cell_decoders import gumbel_noise
 from captionax_torch.models.hypernet import hypernet_apply, hypernet_init, theta_param_count
-from captionax_torch.models.labert import labert_loss, mask_predict_decode
+from captionax_torch.models import convert
+from captionax_torch.models.labert import labert_loss, length_bucket, mask_predict_decode
 from captionax_torch.models.layers import count_params
 from captionax_torch.ops import _cuda
 from captionax_torch.ops import conv_kernel as ck
@@ -206,9 +224,20 @@ from captionax_torch.parallel.mesh import (
     Mesh,
     backend_for,
     data_parallel,
+    default_devices,
     reduce_gradients,
     reduce_metrics,
     shard_bounds,
+)
+from captionax_torch.parallel.pipeline import (
+    pipeline_mesh,
+    pipelined_bert_encoder,
+    pipelined_catr_stacks,
+)
+from captionax_torch.parallel.sequence import (
+    expert_theta_bank,
+    sequence_mesh,
+    sequence_parallel_bert_encoder,
 )
 from captionax_torch.train import checkpoint as tckpt
 from captionax_torch.train import harness
@@ -5189,6 +5218,390 @@ def data_parallelism() -> dict:
     return {"counts": counts, "by_width": by_width}
 
 
+# ------------------------------ phase 27: pipeline, sequence, expert and tensor parallelism
+PAR_B = CLI_BATCH          # (a), (b): train_labert's batch
+PAR_PIPE, PAR_MICRO, PAR_SEQ = 4, 8, 4
+PAR_LOSS_RTOL = 1e-5       # (a)-(c): the loss against the sequential stack's
+PAR_GRAD_SHARE = 1e-4      # (a)-(c): each gradient, of its leaf's largest entry (share_of)
+PAR_CONTROL_TIMES = 10     # (c): an f32 gradient leaf may stray 10x its f32 step's own distance
+PAR_EXPERT, PAR_BANK = 4, 12
+PAR_BANK_TOL = 1e-6        # (d): the expert bank against synthesize_theta_batched
+PAR_ROWS = 0.999           # (d): rows of the two K1 decodes equal
+PAR_CLI_IMAGES = 160       # (c), (f): 128 train images, two steps of 64
+PAR_FILES = 64             # (f): image files captioned
+
+
+def labert_batch(T: int, seed: int) -> list:
+    """train_labert's step inputs at B=PAR_B on the card: features
+    [B, 49, 2048], captions [B, T] of 8..T real tokens, their length-bucket
+    types and the mask draws."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    feats = torch.randn((PAR_B, R, NF), generator=g, device=DEVICE)
+    rs = np.random.RandomState(seed)
+    caps = rs.randint(4, V, (PAR_B, T))
+    lengths = rs.randint(8, T + 1, PAR_B)
+    caps[np.arange(T)[None, :] >= lengths[:, None]] = 0
+    types = np.asarray([length_bucket(int(n)) + 2 for n in lengths])[:, None].repeat(T, 1)
+    draws = cli_labert.step_mask_draws(seed, PAR_B, T, DEVICE)
+    return [feats, torch.from_numpy(caps).to(DEVICE), torch.from_numpy(types).to(DEVICE), draws]
+
+
+def against_sequential(what: str, loss_fn, params, encoder_fn) -> dict:
+    """``loss_fn(params, encoder_fn)``'s loss and gradients with
+    ``encoder_fn`` against the sequential stack's (None), each the second of
+    two synced calls; -> the readings."""
+    run = {}
+    for name, fn in (("sequential", None), (what, encoder_fn)):
+        for _ in range(2):
+            (loss, grads), ms = synced_ms(
+                lambda: tsteps._value_and_grad(lambda p: loss_fn(p, fn), params))
+        run[name] = (float(loss), grads, ms)
+    (ls, gs, ms_s), (lp, gp, ms_p) = run["sequential"], run[what]
+    rel = abs(lp - ls) / abs(ls)
+    share, worst = max(zip(map(share_of, tree_leaves(gp), tree_leaves(gs)), leaf_paths(gs)))
+    say(f"  {what}: loss {lp:.7f} against the sequential stack's {ls:.7f} (relative {rel:.2e}, "
+        f"bound {PAR_LOSS_RTOL}); gradients within {share:.2e} of each leaf's largest entry "
+        f"(at least 1e-3; worst {worst}; bound {PAR_GRAD_SHARE}); a loss and its gradients "
+        f"{ms_p:.2f} ms, sequential {ms_s:.2f} ms (one process, the second call, synced) "
+        f"[{CARD}]")
+    require(rel <= PAR_LOSS_RTOL, f"{what}: loss relative {rel}")
+    require(share <= PAR_GRAD_SHARE, f"{what}: gradient {worst} {share}")
+    return {"rel": rel, "share": share, "ms": ms_p, "ms_seq": ms_s}
+
+
+def labert_schedules() -> None:
+    """(a) LaBERT at train_labert's defaults (hidden 768, 12 layers, 12 heads,
+    FFN 3072, V = 9684 + [MASK]), B = 64, 49 + 25 tokens: the loss and its
+    gradients over pipe 4 (8 microbatches), then (b) over seq 4, all-gather
+    and ring (the text padded to 27 columns), each against the sequential
+    stack on the same inputs."""
+    slots = default_devices(PAR_PIPE)
+    params = cli_labert.build_labert_model(gen(270), V + 1, 768, 12, 12, DEVICE)
+    say(f"  LaBERT {count_params(params):,} parameters; mesh slots {[str(d) for d in slots]}")
+    loss_of = lambda inputs: (lambda p, enc: labert_loss(p, *inputs, V, num_heads=12,
+                                                         encoder_fn=enc))
+    inputs = labert_batch(T_CAP, 271)
+    against_sequential(f"(a) pipe {PAR_PIPE}, {PAR_MICRO} microbatches", loss_of(inputs), params,
+                       pipelined_bert_encoder(pipeline_mesh(PAR_PIPE, devices=slots), PAR_MICRO,
+                                              12))
+    feats, caps, types, draws = inputs
+    padded = [feats, *cli_labert.pad_for_seq(caps, types, draws, R, PAR_SEQ)]
+    say(f"  (b) the text padded from {caps.shape[1]} to {padded[1].shape[1]} columns "
+        f"({R} + {padded[1].shape[1]} tokens, {PAR_SEQ} shards)")
+    for ring in (False, True):
+        against_sequential(f"(b) seq {PAR_SEQ}, {'ring' if ring else 'all-gather'}",
+                           loss_of(padded), params,
+                           sequence_parallel_bert_encoder(
+                               sequence_mesh(PAR_SEQ, devices=default_devices(PAR_SEQ)), 12,
+                               ring=ring))
+
+
+def first_step_spies(cli, rec: dict) -> dict:
+    """``cli._value_and_grad`` recording each train step's loss and the first
+    step's parameters and gradients, and ``cli.make_train_step`` its inputs
+    (host copies, made before the optimizer overwrites them)."""
+    real_vg, real_make = cli._value_and_grad, cli.make_train_step
+
+    def value_and_grad(fn, params):
+        if "params" not in rec:
+            rec["params"] = to_device(params, "cpu")
+        loss, grads = real_vg(fn, params)
+        if "grads" not in rec:
+            rec["grads"] = to_device(grads, "cpu")
+        rec.setdefault("losses", []).append(float(loss))
+        return loss, grads
+
+    def make_train_step(*args, **kwargs):
+        step = real_make(*args, **kwargs)
+
+        def first_inputs(state, *inputs):
+            rec.setdefault("inputs", to_device(list(inputs), "cpu"))
+            return step(state, *inputs)
+        return first_inputs
+
+    return {"_value_and_grad": value_and_grad, "make_train_step": make_train_step}
+
+
+def f64_grads(loss_fn, params, inputs, stacks=(None,)) -> list:
+    """The gradients of ``loss_fn(params, inputs, stack)`` in f64 on the card,
+    one tree on the host for each of ``stacks`` (None: the sequential one)."""
+    f64 = lambda tree: tree_map(lambda x: x.double() if x.is_floating_point() else x,
+                                to_device(tree, DEVICE))
+    p, args = f64(params), f64(inputs)
+    return [to_device(tsteps._value_and_grad(lambda q: loss_fn(q, args, st), p)[1], "cpu")
+            for st in stacks]
+
+
+
+def parallel_clis(enc_params) -> tuple:
+    """(c) train_labert --pipe 4 and --seq 4 --seq-ring and train_catr --pipe
+    2 at their defaults, one epoch of 128 train images (two steps of 64),
+    each against the same CLI with --pipe 1: every step's loss, and the
+    first step's gradients, in f32 and, on the first step's own weights and
+    inputs, in f64.  An f32 leaf beyond PAR_GRAD_SHARE passes only within
+    PAR_CONTROL_TIMES the sequential f32 step's own distance from its f64
+    gradient (a ReLU whose input is float noise from 0 flips between two
+    roundings of the same sums).  -> (K4's launches, by chain width)."""
+    labert_loss_of = lambda p, a, enc: labert_loss(p, *a, V, num_heads=12, encoder_fn=enc)
+
+    def catr_loss_of(p, a, stacks):
+        enc, dec = stacks or (None, None)
+        return cross_entropy_loss(catr_forward(p, a[0], a[1][:, :-1], encoder_fn=enc,
+                                               decoder_fn=dec, num_heads=8), a[1][:, 1:])
+
+    pipe = lambda n: pipeline_mesh(n, devices=default_devices(n))
+    runs = {
+        "train_labert": (cli_labert, labert_loss_of, {
+            "--pipe 1": ([], None),
+            "--pipe 4": (["--pipe", "4"], lambda: pipelined_bert_encoder(pipe(4), 8, 12)),
+            "--seq 4 --seq-ring": (["--seq", "4", "--seq-ring"],
+                                   lambda: sequence_parallel_bert_encoder(
+                                       sequence_mesh(4, devices=default_devices(4)), 12,
+                                       ring=True))}),
+        "train_catr": (cli_catr, catr_loss_of, {
+            "--pipe 1": ([], None),
+            "--pipe 2": (["--pipe", "2"], lambda: pipelined_catr_stacks(pipe(2), 4, 8))})}
+    before = k4_counts()
+    with tempfile.TemporaryDirectory(prefix="captionax-par-") as tmp:
+        data = seeded_corpus(tmp, PAR_CLI_IMAGES, CLI_BATCH)
+        for name, (cli, loss_of, variants) in runs.items():
+            recs = {}
+            for flag, (extra, _) in variants.items():
+                rec: dict = {}
+                ckdir = os.path.join(tmp, f"{name}{len(recs)}")
+                argv = data + ["--synthetic-images", str(PAR_CLI_IMAGES), "--max-epochs", "1",
+                               "--checkpoint-dir", ckdir] + extra
+                t0 = time.perf_counter()
+                with patched(cli, build_encoder=lambda *a, **k: enc_params,
+                             **first_step_spies(cli, rec)):
+                    cli.main(argv)
+                torch.cuda.synchronize()
+                rec["s"] = time.perf_counter() - t0
+                recs[flag] = rec
+            (_, base), *others = recs.items()
+            require(len(base["losses"]) == 2, f"{name}: {len(base['losses'])} steps")
+            paths = leaf_paths(base["grads"])
+            g64_base = f64_grads(loss_of, base["params"], base["inputs"])[0]
+            control = list(map(share_of, tree_leaves(base["grads"]), tree_leaves(g64_base)))
+            del g64_base
+            for flag, rec in others:
+                rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], base["losses"]))
+                same_bits(rec["params"], base["params"], f"{name} {flag}: the first weights")
+                g64_seq, g64_par = f64_grads(loss_of, rec["params"], rec["inputs"],
+                                             (None, variants[flag][1]()))
+                share64 = max(map(share_of, tree_leaves(g64_par), tree_leaves(g64_seq)))
+                f32 = list(map(share_of, tree_leaves(rec["grads"]), tree_leaves(base["grads"])))
+                share, worst, ctl = max(zip(f32, paths, control))
+                over = [(p, s, c) for s, p, c in zip(f32, paths, control) if s > PAR_GRAD_SHARE]
+                say(f"  (c) {name} {flag}: step losses "
+                    + ", ".join(f"{x:.6f}" for x in rec["losses"]) + " against --pipe 1's "
+                    + ", ".join(f"{x:.6f}" for x in base["losses"])
+                    + f" (relative at most {rel:.2e}, bound {PAR_LOSS_RTOL}); the first step's "
+                    f"gradients in f32 within {share:.2e} of each leaf's largest entry (worst "
+                    f"{worst}; --pipe 1's own f32 step is {ctl:.2e} from its f64 gradient "
+                    f"there), {len(over)} of {len(paths)} leaves over {PAR_GRAD_SHARE}"
+                    + "".join(f"; {p}: {s:.2e}, control {c:.2e}" for p, s, c in over[:4])
+                    + f"; in f64 on the same weights and inputs within {share64:.2e} (bound "
+                    f"{PAR_GRAD_SHARE}); the run {rec['s']:.2f} s, --pipe 1 {base['s']:.2f} s "
+                    f"[{CARD}]")
+                require(len(rec["losses"]) == len(base["losses"]) and rel <= PAR_LOSS_RTOL,
+                        f"{name} {flag}: losses {rec['losses']} {base['losses']}")
+                require(share64 <= PAR_GRAD_SHARE, f"{name} {flag}: f64 gradient {share64}")
+                for p, s, c in over:
+                    require(s <= PAR_CONTROL_TIMES * c,
+                            f"{name} {flag}: gradient {p} {s}, over {PAR_CONTROL_TIMES} x {c}")
+    return k4_since(before)
+
+
+def expert_bank() -> dict:
+    """(d) expert_theta_bank over expert 4 at full width (E = H = 200, S =
+    12) against synthesize_theta_batched, then a B = 1024 mixed-style K1
+    beam decode (f32, </s> +0.26) on each bank.  -> K1's launches."""
+    model = dp_model(DEVICE)
+    embeds = style_table(model)[torch.arange(4, 4 + PAR_BANK, device=DEVICE)]
+    mesh = sequence_mesh(PAR_EXPERT, seq_axis="expert", devices=default_devices(PAR_EXPERT))
+    bank, ms = synced_ms(expert_theta_bank(mesh, "expert"), model, embeds)
+    ref, ms_ref = synced_ms(synthesize_theta_batched, model, embeds)
+    err = max((bank[k] - ref[k]).abs().max().item() for k in ref)
+    say(f"  (d) expert bank over {PAR_EXPERT} slots, S = {PAR_BANK}: "
+        + ", ".join(f"{k} {list(v.shape)}" for k, v in bank.items())
+        + f"; max |difference| from synthesize_theta_batched {err:.3e} (bound {PAR_BANK_TOL}); "
+        f"{ms:.2f} ms, batched {ms_ref:.2f} ms [{CARD}]")
+    require(err <= PAR_BANK_TOL, f"expert bank: {err}")
+    dec = mid_copy(model["decoder"], EOS_BIAS + MID_BIAS)  # +MID_BIAS on </s>
+    feats = torch.randn((B, R, NF), generator=torch.Generator(device=DEVICE).manual_seed(27),
+                        device=DEVICE)
+    rows = np.random.RandomState(27).randint(0, PAR_BANK, B).astype(np.int32)
+    servers = [make_beam_server(dec, b, max_steps=MAX_STEPS, packed=True, f32=True,
+                                device=DEVICE) for b in (bank, ref)]
+    (got, want), launches = count_launches(
+        lambda: [serve(s, [(feats, rows)])[0] for s in servers], "expert-bank beam decode")
+    ok = ((got.tokens == want.tokens).all(1) & (got.found == want.found)
+          & (got.lengths == want.lengths)
+          & (~want.found | (np.abs(got.scores - want.scores) <= FULL_SCORE_TOL)))
+    check_outputs([got], "expert-bank beam decode", min_found=0.05)
+    say(f"  (d) K1 on the expert bank against K1 on the batched bank, B = {B}, {PAR_BANK} "
+        f"styles: {int(ok.sum())}/{B} rows equal in tokens, found and lengths with scores "
+        f"within {FULL_SCORE_TOL} (bound {PAR_ROWS}) [{CARD}]")
+    require(ok.mean() >= PAR_ROWS, f"expert-bank decode: {ok.mean()}")
+    return launches
+
+
+def scale_checks() -> None:
+    """(e) scale_check --kind hypernet --mesh-data 2 --mesh-model 2 at its
+    defaults (V = 9684), and --kind labert --pipe 4 (hidden 768, 12 layers),
+    on the card's slots."""
+    import io
+
+    for argv in (["--kind", "hypernet", "--mesh-data", "2", "--mesh-model", "2"],
+                 ["--kind", "labert", "--pipe", "4"]):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli_scale_check.main(argv)
+        torch.cuda.synchronize()
+        lines = out.getvalue().strip().splitlines()
+        say(f"  (e) scale_check {' '.join(argv)}: {time.perf_counter() - t0:.2f} s")
+        for line in lines:
+            say(f"      {line}")
+        require(lines[-1] == "scale_check OK", f"scale_check {argv}: {lines[-1:]}")
+
+
+def same_bits(a, b, what: str) -> int:
+    """Equal trees (keys, lengths, shapes, dtypes, bits); -> the tensors."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    require(leaf_paths(a) == leaf_paths(b) and len(la) == len(lb), f"{what}: structure")
+    for p, x, y in zip(leaf_paths(a), la, lb):
+        require(x.dtype == y.dtype and x.shape == y.shape and torch.equal(x.cpu(), y.cpu()),
+                f"{what}: {p} differs")
+    return len(la)
+
+
+def checkpoint_bridge(enc_params) -> tuple:
+    """(f) train_hypernet at full width for one short epoch (160 synthetic
+    images, --fused-scan) on a ResNet-152 given as a torchvision state dict;
+    export_checkpoint of its checkpoint with the trunk, import_checkpoint of
+    that .ckpt with --encoder-out; the parameters and the trunk back bit for
+    bit; then caption (beam over three styles, greedy) on 64 image files
+    from the original checkpoint and from the imported one.  -> (the
+    launches of the caption runs and of train_hypernet, K4's by width)."""
+    counts: dict = {}
+    by_width: dict = {}
+
+    def add(c, w):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in w.items():
+            by_width[k] = by_width.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory(prefix="captionax-bridge-") as tmp:
+        data = seeded_corpus(tmp, PAR_CLI_IMAGES, CLI_BATCH)
+        trunk = os.path.join(tmp, "resnet152.pt")
+        torch.save(convert.encoder_state_dict_from_params(enc_params), trunk)
+        trained, back = os.path.join(tmp, "trained"), os.path.join(tmp, "imported")
+        reset_cli_counts()
+        t0 = time.perf_counter()
+        cli_hypernet.main(data + ["--synthetic-images", str(PAR_CLI_IMAGES), "--max-epochs", "1",
+                                  "--checkpoint-dir", trained, "--encoder-weights", trunk,
+                                  "--fused-scan"])
+        torch.cuda.synchronize()
+        add(cli_counts(), dict(ck.LAUNCHES_BY_WIDTH))
+        t1 = time.perf_counter()
+        ckpt = os.path.join(tmp, "hypernet.ckpt")
+        blob = cli_export.main(["--checkpoint-dir", trained, "--kind", "hypernet", "--out", ckpt,
+                                "--encoder-weights", trunk, "--hparams", '{"lr": 0.005}'])
+        t2 = time.perf_counter()
+        imported = cli_import.main(["--ckpt", ckpt, "--out", back, "--encoder-out",
+                                    os.path.join(tmp, "trunk.pt")])
+        t3 = time.perf_counter()
+        n = same_bits(tckpt.restore_checkpoint(back), tckpt.restore_checkpoint(trained),
+                      "the imported checkpoint")
+        m = same_bits(torch.load(os.path.join(tmp, "trunk.pt"), weights_only=True),
+                      torch.load(trunk, weights_only=True), "the imported trunk")
+        say(f"  (f) train_hypernet ({PAR_CLI_IMAGES} images, one epoch, --fused-scan) "
+            f"{t1 - t0:.2f} s; export_checkpoint {len(blob['state_dict'])} tensors "
+            f"({os.path.getsize(ckpt) / 1e6:.1f} MB) {t2 - t1:.2f} s; import_checkpoint "
+            f"(kind {imported['kind']}) {t3 - t2:.2f} s; the re-imported checkpoint's {n} tensors "
+            f"and the trunk's {m} equal the originals bit for bit [{CARD}]")
+        rs = np.random.RandomState(27)
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        for i in range(PAR_FILES):
+            h, w = rs.randint(96, 481, 2)
+            write_image(img_dir, f"img{i:03d}", rs.randint(0, 256, (h, w, 3), np.uint8),
+                        i % 2 == 0)
+        vocab_path = data[data.index("--vocab-path") + 1]
+        runs = {"beam": (["--decode", "beam", "--styles", ",".join(CLI_STYLES)],
+                         dk.BEAM_KERNELS),
+                "greedy": (["--decode", "greedy"], dk.GREEDY_KERNELS)}
+        for name, (extra, kernels) in runs.items():
+            rows = {}
+            for which, ckdir, weights in (("original", trained, trunk),
+                                          ("imported", back, os.path.join(tmp, "trunk.pt"))):
+                out = os.path.join(tmp, f"{name}_{which}.jsonl")
+                flags = ["--vocab-path", vocab_path, "--checkpoint-dir", ckdir,
+                         "--encoder-weights", weights, "--images", img_dir, "--out", out,
+                         "--beam-max-steps", str(MAX_STEPS)] + extra
+                t0 = time.perf_counter()
+                _, launches = count_launches(lambda: cli_caption.main(flags),
+                                             f"(f) caption --decode {name}, {which}",
+                                             tuple(kernels) + ck.KERNELS)
+                add(launches, dict(ck.LAUNCHES_BY_WIDTH))
+                rows[which] = read_jsonl(out)
+                say(f"  (f) caption --decode {name} from the {which} checkpoint: "
+                    f"{len(rows[which])} rows, {time.perf_counter() - t0:.2f} s")
+            a, b = rows["original"], rows["imported"]
+            same = [x == y for x, y in zip(a, b)]
+            say(f"  (f) caption --decode {name}: {sum(same)}/{len(a)} rows of the imported "
+                f"checkpoint equal the original's (image, style, caption"
+                + (", score, completed" if name == "beam" else "") + f") [{CARD}]")
+            require(len(a) == len(b) == PAR_FILES * (len(CLI_STYLES) if name == "beam" else 1)
+                    and all(same), f"(f) caption {name}: {sum(same)}/{len(a)} rows equal")
+    return counts, by_width
+
+
+def parallelism_and_bridge() -> dict:
+    """(27) Pipeline, sequence, expert and tensor parallelism in one process
+    over the card's slots, and the checkpoint bridge: (a)-(f) above.  ->
+    the kernels' launches on the phase's paths."""
+    counts: dict = {}
+    by_width: dict = {}
+
+    def add(c, w=None):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in (w or {}).items():
+            by_width[k] = by_width.get(k, 0) + v
+
+    say(f"  {torch.cuda.device_count()} card(s); mesh slots from default_devices: a card "
+        f"repeats where there are fewer")
+    enc = k4_resnet(25)
+    t = time.perf_counter()
+    labert_schedules()
+    say(f"  (a), (b) {time.perf_counter() - t:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    k4, k4_width = parallel_clis(enc)
+    add({}, k4_width)
+    say(f"  (c) {time.perf_counter() - t:.2f} s; K4 launches {k4}")
+    require(k4 > 0, "(c): K4 did not launch")
+    t = time.perf_counter()
+    add(expert_bank())
+    say(f"  (d) {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    scale_checks()
+    say(f"  (e) {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    add(*checkpoint_bridge(enc))
+    say(f"  (f) {time.perf_counter() - t:.2f} s")
+    for op in dk.BEAM_KERNELS + dk.GREEDY_KERNELS:
+        require(counts.get(op.name, 0) > 0, f"{op.name} was not launched in phase 27")
+    say("  phase 27 launches: " + str(counts)
+        + f"; K4 by chain width {by_width}")
+    return {"counts": counts, "by_width": by_width}
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -5358,6 +5771,22 @@ def main() -> int:
             k["launches_data_parallel"] = dp["by_width"].get(width, 0)
         elif op in dp["counts"]:
             k["launches_data_parallel"] = dp["counts"][op]
+    del dp
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with Phase("27 pipeline, sequence, expert and tensor parallelism, the checkpoint bridge: "
+               "LaBERT over pipe 4 and seq 4, train_labert --pipe/--seq, train_catr --pipe "
+               "(K4), the expert bank (K1), scale_check, export/import then caption (K4 + K1, "
+               "K2)"):
+        par = parallelism_and_bridge()
+    for k in kernels:
+        op = k["name"].split(" (")[0]
+        if k["source"] == K4_SOURCE:
+            width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
+            k["launches_parallel"] = par["by_width"].get(width, 0)
+        else:
+            k["launches_parallel"] = par["counts"].get(op, 0)
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))

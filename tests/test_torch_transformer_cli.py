@@ -17,9 +17,11 @@ The seams (as in ``test_torch_captioning_cli.py``):
 
 Under them: every logged train loss and LaBERT's validation losses within
 1e-5 relative, the final metrics within 1e-6.  ``--pipe 2``, ``--seq 2``
-raise naming "Parallelism" and ``--mesh-data 2`` is ignored, as in
-captionax; an epoch without a train
-batch raises in both packages (the epoch line prints the last loss)."""
+and ``--seq 2 --seq-ring`` train as the run without them does (the
+pipeline and sequence schedules on CPU slots), their bad settings raise
+captionax's messages, and ``--mesh-data 2`` is ignored, as in captionax;
+an epoch without a train batch raises in both packages (the epoch line
+prints the last loss)."""
 
 import jax
 import numpy as np
@@ -136,28 +138,138 @@ def test_final_metrics(runs):
 
 
 PARALLEL = [("labert", "--pipe"), ("labert", "--seq"), ("labert", "--mesh-data"),
-            ("catr", "--pipe"), ("catr", "--mesh-data")]
+            ("catr", "--pipe"), ("catr", "--mesh-data"), ("labert", "--seq-ring")]
+FLAGS = {"--pipe": ["--pipe", "2"], "--seq": ["--seq", "2"], "--mesh-data": ["--mesh-data", "2"],
+         "--seq-ring": ["--seq", "2", "--seq-ring"]}
+# (flags, the message of parser.error) for each flag's bad settings; the
+# batch is 4, LaBERT and CATR have 2 layers a side
+BAD = {
+    ("labert", "--pipe"): [(["--pipe", "3"], "--bert-layers 2 must divide by --pipe 3"),
+                           (["--pipe", "2", "--pipe-micro", "3"],
+                            "--batch-size 4 must divide by --pipe-micro 3")],
+    ("labert", "--seq"): [(["--seq", "2", "--pipe", "2"],
+                           "--seq and --pipe are mutually exclusive")],
+    ("labert", "--seq-ring"): [(["--seq", "2", "--seq-ring", "--pipe", "2"],
+                                "--seq and --pipe are mutually exclusive")],
+    ("catr", "--pipe"): [(["--pipe", "3"], "--enc-layers 2 must divide by --pipe 3"),
+                         (["--pipe", "2", "--pipe-micro", "3"],
+                          "--batch-size 4 must divide by --pipe-micro 3")],
+}
+PARAM_RTOL = 1e-5   # the logged train losses
+GRAD_SHARE = 1e-5   # the first step's gradients, of each leaf's largest entry
+FINAL_RTOL = 1e-4   # the final parameters (see test_parallel_flags_raise)
+STEPS = 2  # one epoch of 9 train images in batches of 4
+LR = 5e-3  # TrainConfig's
 
 
-@pytest.mark.parametrize("name,flag", PARALLEL)
-def test_parallel_flags_raise(tmp_path, name, flag):
-    """--pipe and --seq above 1 raise.  --mesh-data raised until data
-    parallelism was ported; now, as in captionax, these CLIs ignore it and
-    train on one device: the final state is bit-equal to a run without it."""
-    _, tmod, _, sizes = PACKAGES[name]
-    if flag != "--mesh-data":
-        with pytest.raises(NotImplementedError, match="Parallelism"):
-            tmod.main(flags(str(tmp_path)) + sizes + CPU + [flag, "2"])
-        return
+def key_bias(path: str) -> bool:
+    """An attention key projection's bias: its gradient is 0 up to float
+    noise (softmax ignores a shift shared by every key), and Adam scales
+    noise into steps of up to ``lr`` whichever its sign."""
+    return path.endswith("/k/b")
+
+
+def leaf_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+@pytest.fixture(scope="module")
+def without_flag():
+    """The runs without a parallel flag, one a model, filled by the first
+    test that needs each: (final state, first gradients, logged losses)."""
+    return {}
+
+
+def cpu_run(tmod, argv):
+    """``tmod.main(argv)`` on the stub encoder; -> (final state, the first
+    train step's gradients, copied before the optimizer overwrites them)."""
+    first = []
+    real = tmod._value_and_grad
+
+    def spy(fn, params):
+        loss, grads = real(fn, params)
+        if not first:
+            first.append([g.clone() for g in tree_leaves(grads)])
+        return loss, grads
+
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tmod, "build_encoder", lambda *a, **k: {})
         mp.setattr(tmod, "make_encoder", lambda _p, regions=True, device=None: (
             lambda images: torch.from_numpy(stub_regions(np.asarray(images.cpu())))))
-        base = sizes + CPU + ["--max-epochs", "1"]
-        want = tmod.main(flags(str(tmp_path / "one")) + base)
-        got = tmod.main(flags(str(tmp_path / "two")) + base + [flag, "2"])
-    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got.params),
-                                                 tree_leaves(want.params)))
+        mp.setattr(tmod, "_value_and_grad", spy)
+        return tmod.main(argv), (first or [None])[0]
+
+
+@pytest.mark.parametrize("name,flag", PARALLEL)
+def test_parallel_flags_raise(tmp_path, capsys, without_flag, name, flag):
+    """Each parallel flag at 2 trains an epoch on the CPU as the run without
+    it does: its first step's gradients within 1e-5 of each leaf's largest
+    entry (a key bias's, 0 up to float noise as softmax ignores a shift
+    shared by every key, within 1e-5 of the largest gradient), every logged
+    train loss within 1e-5 relative, and every final parameter leaf within
+    1e-4 relative (the norm of the difference over the leaf's): Adam divides
+    each gradient entry by its own root mean square, so an entry that is
+    float noise near 0 on both runs moves by up to lr either way (a key
+    bias, all such noise, within 2 * lr an entry a step).
+    ``--mesh-data`` is ignored, as in captionax: the final state is
+    bit-equal.  The flags' bad settings raise captionax's messages through
+    ``parser.error``."""
+    _, tmod, _, sizes = PACKAGES[name]
+    base = sizes + CPU + ["--max-epochs", "1", "--log-every", "1"]
+    for bad, message in BAD.get((name, flag), []):
+        with pytest.raises(SystemExit):
+            cpu_run(tmod, flags(str(tmp_path / "bad")) + base + bad)
+        assert message in capsys.readouterr().err
+    if name not in without_flag:
+        run = cpu_run(tmod, flags(str(tmp_path / "one")) + base)
+        without_flag[name] = run + (logged_losses(tmp_path / "one"),)
+    want, want_grads, want_losses = without_flag[name]
+    got, got_grads = cpu_run(tmod, flags(str(tmp_path / "two")) + base + FLAGS[flag])
+    got_losses = logged_losses(tmp_path / "two")
+    if flag == "--mesh-data":
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got.params),
+                                                     tree_leaves(want.params)))
+        return
+    assert len(got_losses) == len(want_losses) == STEPS
+    for a, b in zip(got_losses, want_losses):
+        assert abs(a - b) <= PARAM_RTOL * abs(b), (a, b)
+    top = max(g.abs().max().item() for g in want_grads)
+    paths = leaf_paths(want.params)
+    for path, a, b in zip(paths, got_grads, want_grads):
+        err = (a - b).abs().max().item()
+        bound = GRAD_SHARE * (top if key_bias(path) else b.abs().max().item())
+        assert err <= bound, ("gradient", path, err, bound)
+    for path, a, b in zip(paths, tree_leaves(got.params), tree_leaves(want.params)):
+        if key_bias(path):
+            assert (a - b).abs().max().item() <= 2 * STEPS * LR, path
+        else:
+            rel = ((a - b).norm() / b.norm()).item()
+            assert rel <= FINAL_RTOL, (path, rel)
+
+
+def logged_losses(ckdir):
+    import json
+
+    with open(ckdir / "run.jsonl") as f:
+        return [r["train_loss"] for r in map(json.loads, f) if "train_loss" in r]
+
+
+def test_resolve_mesh_refuses_pipe_and_seq():
+    """--mesh-data does not combine with --pipe or --seq (captionax runs no
+    data-parallel mesh beside them); either alone resolves."""
+    from argparse import Namespace
+
+    from captionax_torch.cli.common import resolve_mesh
+
+    for extra in ({"pipe": 2}, {"seq": 2}):
+        with pytest.raises(ValueError, match="does not combine"):
+            resolve_mesh(Namespace(mesh_data=2, device="cpu", **extra))
+        assert resolve_mesh(Namespace(mesh_data=0, device="cpu", **extra)) is None
+    assert resolve_mesh(Namespace(mesh_data=2, device="cpu", pipe=1, seq=1)).n_data == 2
 
 
 @pytest.mark.parametrize("name", list(PACKAGES))
