@@ -3,9 +3,9 @@ domain each.
 
 The port's own copy of ``captionax/data/cc.py`` (importing anything of
 captionax runs its package init, which imports JAX): the same files, the
-same batches for the same seed.  Captions are encoded by the Python
-encoder (``Vocab.encode``); captionax's native caption encoder, which is
-token-identical, is not ported yet.
+same batches for the same seed.  Captions are encoded by the native C++
+caption encoder (``core/textenc_native.py``) where it builds, else by the
+Python encoder (``Vocab.encode``), as captionax does.
 
 File format: ``<id>.jpg␣␣␣␣␣<caption>␣␣␣␣␣<domain>``, five-space separated.
 
@@ -103,6 +103,9 @@ class ConceptualCaptionsData:
         self.by_domain: Dict[str, List[int]] = {}
         for i, (_, _, dom) in enumerate(self.rows):
             self.by_domain.setdefault(dom, []).append(i)
+        from captionax_torch.data.flickr import _make_fast_encoder
+
+        self._fast = _make_fast_encoder(self.vocab)
 
     def __len__(self):
         return len(self.rows)
@@ -112,6 +115,8 @@ class ConceptualCaptionsData:
         return list(self.by_domain)
 
     def _encode(self, caption: str) -> np.ndarray:
+        if self._fast is not None:
+            return self._fast.encode_batch([caption], self.max_len)[0]
         ids = self.vocab.encode(caption)[: self.max_len]
         arr = np.zeros((self.max_len,), np.int32)
         arr[: len(ids)] = ids

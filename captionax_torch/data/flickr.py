@@ -3,8 +3,9 @@
 The port's own copy of ``captionax/data/flickr.py``: the same files, the
 same batches for the same seed (every style and caption pick is drawn
 from ``random.Random(seed)`` in captionax's order).  Captions are encoded
-by the Python encoder (``Vocab.encode``); captionax's native C++ caption
-encoder, which is token-identical, is not ported yet.
+by the native C++ caption encoder (``core/textenc_native.py``) where it
+builds, else by the Python encoder (``Vocab.encode``), as captionax does;
+the two give the same ids on ASCII captions.
 
 File formats (the reference's data_loader.py):
 - factual: ``<name>.jpg#<k>\\t<caption>`` lines, 5 captions per image in
@@ -36,6 +37,20 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 STYLE_NAMES = ("factual", "humour", "romantic")
+
+
+def _make_fast_encoder(vocab):
+    """The native caption encoder over ``vocab`` where it builds, else None
+    (the datasets then encode through ``vocab.encode``): also for a vocab
+    that lacks the word table or the special tokens the encoder reads."""
+    from captionax_torch.core.textenc_native import NativeCaptionEncoder, native_available
+
+    if not native_available():
+        return None
+    try:
+        return NativeCaptionEncoder(vocab)
+    except (AttributeError, KeyError):
+        return None
 
 
 def load_factual_captions(path: str) -> List[Tuple[str, str]]:
@@ -81,12 +96,15 @@ class FlickrStyleData:
         self.num_images = min(
             len(self.factual) // 5, len(self.humour), len(self.romantic)
         )
+        self._fast = _make_fast_encoder(self.vocab)
 
     def __len__(self) -> int:
         return self.num_images
 
     # -- encoding -------------------------------------------------------
     def _encode(self, caption: str) -> np.ndarray:
+        if self._fast is not None:
+            return self._fast.encode_batch([caption], self.max_len)[0]
         ids = self.vocab.encode(caption)[: self.max_len]
         arr = np.zeros((self.max_len,), np.int32)
         arr[: len(ids)] = ids

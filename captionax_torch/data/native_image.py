@@ -4,11 +4,11 @@ The port's copy of ``captionax/data/native_image.py`` with its ctypes
 loader: the repository's native decoder ``csrc/imgdec.cc`` (libjpeg/libpng
 decode, the grayscale->viridis quirk, then a resize bit-identical to
 Pillow's bilinear, batched over a C++ thread pool) is compiled with ``g++``
-into ``captionax_torch/_build/`` at first use.  An image the native path
-cannot decode (an exotic format, corrupt bytes) goes through PIL, one image
-at a time; where the library cannot be built (no compiler, no
-libjpeg/libpng), every image does.  Where neither is installed, decoding
-raises.  Gray images are replicated to RGB (PIL's ``convert("RGB")``) or,
+into ``captionax_torch/_build/`` at first use (``core/native_build.py``).
+An image the native path cannot decode (an exotic format, corrupt bytes)
+goes through PIL, one image at a time; where the library cannot be built
+(no compiler, no libjpeg/libpng), every image does.  Where neither is
+installed, decoding raises.  Gray images are replicated to RGB (PIL's ``convert("RGB")``) or,
 with ``GRAY_VIRIDIS``, mapped through the viridis colormap before the
 resize; 16-bit ones are scaled by 255/65535.
 """
@@ -16,20 +16,16 @@ resize; 16-bit ones are scaled by 255/65535.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import io
 import os
-import subprocess
-import tempfile
 import threading
-from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "imgdec.cc"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+from captionax_torch.core import native_build
+
+SOURCE = native_build.CSRC / "imgdec.cc"
 LIBS = ("-ljpeg", "-lpng", "-lpthread")
 GRAY_REPLICATE = 0  # PIL convert("RGB") semantics
 GRAY_VIRIDIS = 1    # the Conceptual Captions loader's quirk (LUT applied before resize)
@@ -38,25 +34,6 @@ MAX_THREADS = 16
 _LIB: Optional[ctypes.CDLL] = None
 _LOAD_FAILED = False
 _LOAD_LOCK = threading.Lock()
-
-
-def _build() -> Path:
-    """Compile ``csrc/imgdec.cc`` unless this source is built already."""
-    digest = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode() + SOURCE.read_bytes())
-    out = BUILD_DIR / f"libimgdec_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", tmp, str(SOURCE), *LIBS],
-                       check=True, capture_output=True, timeout=300)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -85,10 +62,8 @@ def _load() -> Optional[ctypes.CDLL]:
     global _LIB, _LOAD_FAILED
     with _LOAD_LOCK:
         if _LIB is None and not _LOAD_FAILED:
-            try:
-                _LIB = _bind(ctypes.CDLL(str(_build())))
-            except (OSError, subprocess.SubprocessError):
-                _LOAD_FAILED = True  # do not rebuild per image after a failed build
+            _LIB = native_build.load(SOURCE, _bind, LIBS)
+            _LOAD_FAILED = _LIB is None  # do not rebuild per image after a failed build
         return _LIB
 
 

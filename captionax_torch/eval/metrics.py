@@ -6,9 +6,10 @@ ids to text via the vocab (skipping ``<pad>``/``<s>``, stopping at
 METEOR, ROUGE-L and corpus-mode CIDEr over the batch.  The harness runs
 these on accumulated eval decodes, off the train step's path.
 
-CIDEr comes from the Python :func:`cider_score` (captionax's ``_assemble``
-takes it from its native scorer, which agrees with the Python one to
-~1e-9; the port's native loader is still to come).  Inputs may be numpy
+CIDEr comes from the native scorer (``eval/cider_native.py`` over
+``csrc/cider.cc``), as captionax's ``_assemble`` takes it, and from the
+Python :func:`cider_score` where that cannot be built; on these
+space-joined vocab tokens the two agree to ~1e-9.  Inputs may be numpy
 arrays or tensors on any device.
 """
 
@@ -19,7 +20,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from captionax_torch.eval.bleu import corpus_bleu
-from captionax_torch.eval.cider import cider_score
+from captionax_torch.eval.cider_native import cider_score_native
 from captionax_torch.eval.meteor import meteor_corpus
 from captionax_torch.eval.rouge import rouge_l_corpus
 
@@ -105,7 +106,7 @@ def _assemble(tok_hyps, tok_refs, hyp_strs, ref_strs) -> Dict[str, float]:
     bleu = _bleu_suite(tok_hyps, tok_refs)
     cider_refs = [[" ".join(r[0])] for r in tok_refs]
     cider_hyps = [" ".join(h) for h in tok_hyps]
-    cider, _ = cider_score(cider_hyps, cider_refs)
+    cider, _ = cider_score_native(cider_hyps, cider_refs)
     return {
         "bleu1": bleu[0],
         "bleu2": bleu[1],

@@ -109,8 +109,18 @@ bank; (e) ``scale_check --kind hypernet --mesh-data 2 --mesh-model 2`` and
 ``--kind labert --pipe 4``; (f) ``export_checkpoint`` of a full-width
 ``train_hypernet`` checkpoint and its ResNet-152, ``import_checkpoint`` of
 the ``.ckpt`` (bit for bit), then ``caption`` (beam over three styles,
-greedy; K4 then K1 / K2) from both checkpoints, every row equal.  One line
-per phase gives the phase's seconds.
+greedy; K4 then K1 / K2) from both checkpoints, every row equal.  Phase
+28 runs the last four modules: it compiles ``csrc/textenc.cc`` and
+``csrc/cider.cc`` afresh (timed) and fails unless both libraries load (no
+fallback to Python here), holds the native caption encoder to
+``Vocab.encode`` on seeded_corpus's 15,000 captions and the native CIDEr
+scorer to the Python one on 3,000 hypotheses (captions/s and seconds of
+each), tokenizes a caption with the PTB tokenizer, and runs ``visualize``
+on the card at its defaults (ResNet-152 on K4, a seeded 9,684-word vocab)
+for the hypernet, ``--kind gru`` and ``--dataset cc``: each report parses
+with a row per image and a column per style, and each greedy decode runs
+again on the CPU on the card's features.  One line per phase gives the
+phase's seconds.
 The line before the last is a JSON ``kernels`` record (K3's and K4's
 entries also carry their launches in phase 20's ``fit`` and, as
 ``launches_cc``, in phase 23's ``cc_train_hypernet`` ``fit``; K1's, K2's
@@ -118,7 +128,8 @@ and K4's their launches on phase 21's paths, K4's on phase 22's and, as
 ``launches_cell_lstm``, on phase 24's runs and, as
 ``launches_transformers``, on phase 25's; K1's, K2's, K3's and K4's, as
 ``launches_data_parallel``, on phase 26's paths and, as
-``launches_parallel``, on phase 27's); the last line is
+``launches_parallel``, on phase 27's, and, as ``launches_visualize``, on
+phase 28's); the last line is
 ``{"ok": true, "device": {...}}``.  Any mismatch, a missing card or a
 failed build raises, and the script exits non-zero without that last line.
 """
@@ -139,6 +150,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -146,6 +158,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from captionax_torch.cli import caption as cli_caption
+from captionax_torch.cli import visualize as cli_visualize
 from captionax_torch.cli import cc_train_gru as cli_cc_gru
 from captionax_torch.cli import cc_train_hypernet as cli_cc_hypernet
 from captionax_torch.cli import train_captioning as cli_captioning
@@ -165,12 +178,15 @@ from captionax_torch.cli import train_hypernet as cli_hypernet
 from captionax_torch.cli import train_init as cli_init
 from captionax_torch.cli import train_labert as cli_labert
 from captionax_torch.cli import train_lstm as cli_lstm
+from captionax_torch.core import native_build, textenc_native
 from captionax_torch.core.config import DataConfig, ModelConfig, TrainConfig
 from captionax_torch.core.runtime import StepTimer
 from captionax_torch.core.vocab import Vocab, load_vocab_pickle
 from captionax_torch.data import native_image
+from captionax_torch.data.cc import SEP as SEP_CC
 from captionax_torch.data.cc import ConceptualCaptionsData, load_cc_captions
 from captionax_torch.data.domains import DomainEmbedder
+from captionax_torch.data.flickr import load_factual_captions
 from captionax_torch.data.seeded_corpus import (
     seeded_cc_corpus,
     seeded_corpus,
@@ -191,6 +207,8 @@ from captionax_torch.decode.serving import (
 )
 from captionax_torch.decode.service import CaptionService, make_http_server
 from captionax_torch.decode.supervise import proc_rss_mb
+from captionax_torch.eval import PTBTokenizer, cider_native
+from captionax_torch.eval.cider import cider_score
 from captionax_torch.eval.metrics import ids_to_text
 from captionax_torch.interop import from_jax_params, to_device, to_numpy_tree
 from captionax_torch.models.classifiers import (
@@ -3191,7 +3209,7 @@ def image_decoder() -> str:
     why = ""
     if not native:
         try:
-            ctypes.CDLL(str(native_image._build()))
+            ctypes.CDLL(str(native_build.build(native_image.SOURCE, native_image.LIBS)))
         except subprocess.CalledProcessError as exc:
             lines = (exc.stderr or b"").decode(errors="replace").strip().splitlines()
             why = f" ({lines[0] if lines else exc})"
@@ -5602,6 +5620,186 @@ def parallelism_and_bridge() -> dict:
     return {"counts": counts, "by_width": by_width}
 
 
+# ------------------------------------------------------------------ 28
+TEXT_IMAGES = 3000     # seeded_corpus images: 15,000 captions to encode, 3,000 CIDEr hypotheses
+CIDER_TOL = 1e-9       # native against Python CIDEr (tests/test_cider_native.py's bound)
+VIZ_IMAGES = 8
+VIZ_DOMAINS = 8
+VIZ_AGREEMENT = 0.99   # greedy rows, card against CPU on the card's features, as phases 20-27
+
+
+def host_libraries(tmp: str) -> dict:
+    """(a) Each host library compiled afresh into a temporary build directory
+    (timed; csrc/ is never written), then both loaders must load theirs:
+    here a failed build fails the phase instead of falling back to Python.
+    -> seconds by library."""
+    seconds = {}
+    with patched(native_build, BUILD_DIR=Path(tmp) / "build"):
+        for mod in (textenc_native, cider_native):
+            t0 = time.perf_counter()
+            try:
+                native_build.build(mod.SOURCE)
+            except subprocess.CalledProcessError as exc:
+                raise AssertionError(f"{mod.SOURCE.name} does not build: "
+                                     + (exc.stderr or b"").decode(errors="replace")[-2000:])
+            seconds[mod.SOURCE.name] = time.perf_counter() - t0
+    loaded = {"textenc.cc": textenc_native.native_available(),
+              "cider.cc": cider_native.native_available()}
+    say("  (a) host libraries built afresh with g++ (" + " ".join(native_build.CXX_FLAGS)
+        + "): " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+        + f"; loaded by the port's loaders: {loaded} [{CARD}]")
+    require(all(loaded.values()), f"(a) a native library does not load: {loaded}")
+    return seconds
+
+
+def caption_encoders(tmp: str) -> dict:
+    """(b) The native caption encoder against ``Vocab.encode`` on
+    seeded_corpus's captions (ASCII): equal ids, and captions/s of each."""
+    flags = seeded_corpus(tmp, TEXT_IMAGES, CLI_BATCH)
+    vocab = load_vocab_pickle(flags[flags.index("--vocab-path") + 1])
+    caps = [c for _, c in load_factual_captions(flags[flags.index("--factual-captions") + 1])]
+    T = TrainConfig().max_len
+    enc = textenc_native.NativeCaptionEncoder(vocab)
+    t0 = time.perf_counter()
+    native = enc.encode_batch(caps, T)
+    t1 = time.perf_counter()
+    one_by_one = np.stack([enc.encode_batch([c], T)[0] for c in caps])
+    t2 = time.perf_counter()
+    python = np.zeros_like(native)
+    for i, c in enumerate(caps):
+        ids = vocab.encode(c)[:T]
+        python[i, :len(ids)] = ids
+    t3 = time.perf_counter()
+    rates = {"native_batch": len(caps) / (t1 - t0), "native_per_caption": len(caps) / (t2 - t1),
+             "python": len(caps) / (t3 - t2)}
+    same = (native == python).all(axis=1)
+    say(f"  (b) caption encoding, {len(caps)} captions, max_len {T}: native in one call "
+        f"{rates['native_batch']:.1f} captions/s, native a caption a call (the datasets' "
+        f"way) {rates['native_per_caption']:.1f}, Python (Vocab.encode) {rates['python']:.1f}; "
+        f"{int(same.sum())}/{len(caps)} rows equal [{CARD}]")
+    require(same.all() and (one_by_one == native).all(),
+            f"(b) native ids differ from Python ids in {int((~same).sum())} rows")
+    return {"captions": len(caps), "rates": rates, "caps": caps}
+
+
+def cider_scorers(caps: list) -> dict:
+    """(c) The native CIDEr scorer against the Python one, a hypothesis an
+    image: image i's first caption against that caption less its last three
+    words and the image's next three captions."""
+    n = len(caps) // 5
+    hyps = [caps[5 * i] for i in range(n)]
+    refs = [[" ".join(caps[5 * i].split()[:-3])] + caps[5 * i + 1:5 * i + 4] for i in range(n)]
+    t0 = time.perf_counter()
+    mean, scores = cider_native.cider_score_native(hyps, refs)
+    t1 = time.perf_counter()
+    py_mean, py_scores = cider_score(hyps, refs)
+    t2 = time.perf_counter()
+    err = float(np.abs(scores - py_scores).max())
+    say(f"  (c) CIDEr over {n} hypotheses (four references each): native {t1 - t0:.4f} s, "
+        f"Python {t2 - t1:.4f} s ({(t2 - t1) / (t1 - t0):.1f}x); mean {mean:.6f} against "
+        f"{py_mean:.6f}, largest distance {err:.3g} [{CARD}]")
+    require(err <= CIDER_TOL and abs(mean - py_mean) <= CIDER_TOL and mean > 0,
+            f"(c) native CIDEr differs from the Python scorer by {err}")
+    return {"native_s": t1 - t0, "python_s": t2 - t1, "hypotheses": n}
+
+
+def report_cells(path: str) -> list:
+    with open(path) as f:
+        html_text = f.read()
+    return [re.findall(r"<td[^>]*>(.*?)</td>", row)
+            for row in re.findall(r"<tr>(.*?)</tr>", html_text)]
+
+
+def visualize_runs(tmp: str) -> dict:
+    """(d) visualize on the card at its defaults (E=F=H=200, ResNet-152 given
+    as a torchvision state dict with every folded scale drawn, the seeded
+    9,684-word vocab, random decoder weights) over VIZ_IMAGES synthetic
+    images: the hypernet (a column per style), --kind gru, --dataset cc
+    (VIZ_DOMAINS domains).  Each report must parse with a row per image (per
+    domain) and a column per style; each greedy decode runs again on the CPU
+    on the card's features with the same weights.  -> the launches, K4's
+    by width, and the seconds of each run."""
+    flags = seeded_corpus(tmp, 64, CLI_BATCH)
+    vocab = load_vocab_pickle(flags[flags.index("--vocab-path") + 1])
+    trunk = os.path.join(tmp, "resnet152.pt")
+    torch.save(convert.encoder_state_dict_from_params(k4_resnet(28)), trunk)
+    rs = np.random.RandomState(28)
+    words = [vocab.i2w[i] for i in range(7, len(vocab))]
+    cc_path = os.path.join(tmp, "cc_train.txt")
+    with open(cc_path, "w") as f:
+        for d in range(VIZ_DOMAINS):
+            for i in range(3):
+                f.write(f"d{d}_{i}.jpg{SEP_CC}{' '.join(rs.choice(words, 10))}{SEP_CC}"
+                        f"web{d:02d}\n")
+    flags += ["--encoder-weights", trunk, "--num-images", str(VIZ_IMAGES),
+              "--checkpoint-dir", os.path.join(tmp, "no_checkpoint")]
+    runs = {"hypernet": ([], 2 + len(cli_visualize.STYLES), VIZ_IMAGES),
+            "gru": (["--kind", "gru"], 3, VIZ_IMAGES),
+            "cc": (["--dataset", "cc", "--cc-captions", cc_path, "--domain-scheme", CC_SCHEME],
+                   4, VIZ_DOMAINS)}
+    calls: list = []
+
+    def spy(params, feats, **kw):
+        out = greedy(params, feats, **kw)
+        calls.append((params, feats, kw, out))
+        return out
+
+    counts: dict = {}
+    by_width: dict = {}
+    seconds = {}
+    for name, (extra, cols, n_rows) in runs.items():
+        out = os.path.join(tmp, f"{name}.html")
+        for op in dk.KERNELS + tk.KERNELS + ck.KERNELS:
+            op.launches = 0
+        ck.LAUNCHES_BY_WIDTH.clear()
+        t0 = time.perf_counter()
+        with patched(cli_visualize, greedy=spy):
+            cli_visualize.main(flags + extra + ["--out", out])
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        for op in dk.KERNELS + tk.KERNELS + ck.KERNELS:
+            counts[op.name] = counts.get(op.name, 0) + op.launches
+        widths = dict(ck.LAUNCHES_BY_WIDTH)
+        for w, c in widths.items():
+            by_width[w] = by_width.get(w, 0) + c
+        cells = report_cells(out)
+        say(f"  (d) visualize {name}: {seconds[name]:.2f} s, {len(cells) - 1} rows of "
+            f"{len(cells[0])} columns, K4 launches by chain width {widths}; first row "
+            f"{cells[1][1:]} [{CARD}]")
+        require(len(cells) == 1 + n_rows and all(len(c) == cols for c in cells),
+                f"(d) visualize {name}: {len(cells)} rows, columns {[len(c) for c in cells]}")
+        require(all(c[0].startswith("<img src='data:image/png;base64,") for c in cells[1:]),
+                f"(d) visualize {name}: a row without its image")
+        require(sum(widths.values()) > 0, f"(d) visualize {name}: K4 did not launch")
+    same = rows = 0
+    for params, feats, kw, out in calls:
+        ref = greedy(params, feats, **dict(kw, device="cpu"))
+        same += int((ref.numpy() == out.cpu().numpy()).all(axis=1).sum())
+        rows += out.shape[0]
+    say(f"  (d) greedy rows of the three reports decoded again on the CPU on the card's "
+        f"features: {same}/{rows} equal [{CARD}]")
+    require(rows == VIZ_IMAGES * (len(cli_visualize.STYLES) + 1) + VIZ_DOMAINS
+            and same >= VIZ_AGREEMENT * rows, f"(d) {same}/{rows} greedy rows equal the CPU's")
+    return {"counts": counts, "by_width": by_width, "seconds": seconds}
+
+
+def native_and_visualize() -> dict:
+    """(28) The last four modules: the host libraries (a), the native caption
+    encoder (b) and CIDEr scorer (c) against their Python versions, the PTB
+    tokenizer, and visualize on the card (d)."""
+    with tempfile.TemporaryDirectory(prefix="captionax-native-") as tmp:
+        t = time.perf_counter()
+        builds = host_libraries(tmp)
+        text = caption_encoders(tmp)
+        cider = cider_scorers(text.pop("caps"))
+        toks = PTBTokenizer().tokenize({0: [{"caption": 'A dog (a "big" one) runs, fast!'}]})
+        say(f"  PTB tokenizer: {toks[0]}; (a)-(c) {time.perf_counter() - t:.2f} s")
+        require(toks[0] == ["a dog a big one runs fast"], f"PTB tokenizer: {toks}")
+    with tempfile.TemporaryDirectory(prefix="captionax-visualize-") as tmp:
+        viz = visualize_runs(tmp)
+    return dict(viz, builds=builds, text=text, cider=cider)
+
+
 def _out_of_time(signum, frame):
     raise TimeoutError(f"chip_smoke: over its {TIME_LIMIT_S} s limit")
 
@@ -5787,6 +5985,20 @@ def main() -> int:
             k["launches_parallel"] = par["by_width"].get(width, 0)
         else:
             k["launches_parallel"] = par["counts"].get(op, 0)
+    del par
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with Phase("28 the last four modules: the native caption encoder and CIDEr scorer against "
+               "their Python versions, the PTB tokenizer, visualize (K4)"):
+        viz = native_and_visualize()
+    for k in kernels:
+        op = k["name"].split(" (")[0]
+        if k["source"] == K4_SOURCE:
+            width = 256 * 2 ** (int(k["name"].split()[2]) - 1)
+            k["launches_visualize"] = viz["by_width"].get(width, 0)
+        else:
+            k["launches_visualize"] = viz["counts"].get(op, 0)
     signal.alarm(0)
     say(f"total {time.perf_counter() - t0:.2f} s")
     say(json.dumps({"kernels": kernels}))

@@ -44,6 +44,15 @@ def test_no_jax_or_captionax_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_every_captionax_module_has_a_counterpart():
+    """The port has a module for each of captionax's, by path (a module of
+    captionax that has nothing to port, such as JAX's compile cache in
+    ``core/runtime.py``, still has its namesake)."""
+    ours = {p.relative_to(PORT) for p in PORT.rglob("*.py")}
+    theirs = {p.relative_to(ROOT / "captionax") for p in (ROOT / "captionax").rglob("*.py")}
+    assert theirs - ours == set()
+
+
 def test_imports_with_jax_and_captionax_blocked(tmp_path):
     """Every module of the port and chip_smoke import with jax and captionax
     made unimportable, and importing builds no kernel."""
